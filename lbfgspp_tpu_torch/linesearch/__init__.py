@@ -1,0 +1,31 @@
+"""Pluggable line searches of the port.
+
+The same registry as ``lbfgspp_tpu.linesearch``, holding only the searches
+ported so far.  Every search takes the batched unified signature
+
+``search(fg, param, xp, drt, step_max, step0, fx0, grad0, dg0, active)``
+
+with ``xp, drt, grad0 [B, n]``, ``fx0, dg0 [B]``, ``step0`` a [B] tensor or
+a scalar, and ``active [B]`` (or None for all) the instances to search for;
+the others return their starting point untouched.
+"""
+
+from .nocedalwright import nocedalwright
+
+LINE_SEARCHES = {
+    "nocedalwright": nocedalwright,
+}
+
+
+def get_line_search(name_or_fn):
+    if callable(name_or_fn):
+        return name_or_fn
+    try:
+        return LINE_SEARCHES[name_or_fn]
+    except KeyError:
+        raise ValueError(
+            f"unknown line search {name_or_fn!r}; available: "
+            f"{sorted(LINE_SEARCHES)}") from None
+
+
+__all__ = ["nocedalwright", "LINE_SEARCHES", "get_line_search"]
