@@ -5,12 +5,16 @@
 
 Phases (any failure makes the script exit 1 and print no result):
 
-1. build the CUDA two-loop kernel from ``lbfgspp_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print its register/spill report;
+1. build the CUDA two-loop kernels from ``lbfgspp_tpu_torch/csrc`` (nvcc,
+   sm_90a), print ptxas's registers and spills for each instantiation and
+   the launch plans of the main shape;
 2. hold the kernel against its plain PyTorch version in float and double,
    in ``sweeps`` and ``rinv`` mode, at the main path's shape (B=4096, m=16,
    n=100) and at odd shapes (mixed fill levels with empty and wrapped
-   rings, m=1, m=33);
+   rings, m=1, m=33, the ragged persistent walk B=4097, rows that are not
+   16-byte multiples n=101, s / v as views at an odd storage offset, and
+   n=1000, staged at one warp per SM in f32 and left in device memory
+   in f64);
 3. run f64 diagonal-quadratic and separable-quartic batches on the card:
    their iteration counts must equal the port's own CPU run;
 4. run the main phase at full width: 4096 pairwise-Rosenbrock starts
@@ -23,7 +27,11 @@ Phases (any failure makes the script exit 1 and print no result):
    every-run 1e-4 gate needs the df64 phases of a later slice);
 5. time the kernel alone at the main path's shape on the main phase's
    final state (CUDA events, median of 25 launches, L2 flushed before
-   each) beside its memory bound and the plain version's time;
+   each), in ``rinv`` and ``sweeps`` mode, f32 and f64, in turns with the
+   first design ``two_loop_simple`` (simple, new, new, simple), beside its
+   memory bound, its share of it and the plain version's time; before
+   that, the card's achievable bandwidth (a 64 MB device copy timed the
+   same way);
 6. profile 20 iterations of the main phase (``torch.profiler``): host ms,
    eager ops and kernel launches per iteration, device busy time and
    idle share, and the top kernels and operators.
@@ -47,6 +55,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
 L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2
 TIMED_LAUNCHES = 25
+COPY_PROBE_BYTES = 64 << 20     # the achievable-bandwidth probe
+HEAD_START_CYCLES = 200_000_000  # ~0.1 s of card time before a timed run
+
 PROFILE_WARMUP, PROFILE_ITERS = 10, 20
 
 MAIN_BATCH, MAIN_N, MAIN_M = 4096, 100, 16
@@ -83,6 +94,40 @@ def random_history(torch, history, batch, n, m, ncorrs, seed, device):
             torch.as_tensor(y, device=device),
             torch.as_tensor(t < ncorrs, device=device))
     return h
+
+
+def ptxas_report(log: str):
+    """One line per compiled function (kernels and out-of-line device
+    functions): its name and ptxas's registers, stack and spills."""
+    mangled = []
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            mangled.append(line.split("Function properties for", 1)[1].strip())
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(mangled),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) != len(mangled):
+        names = mangled
+    out, k = [], -1
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            k += 1
+        elif ("registers" in line or "spill" in line or "error" in line) \
+                and k >= 0:
+            out.append(f"{names[k][:70]}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def at_odd_offset(torch, t):
+    """The same values as a contiguous view one element into its storage,
+    so its address is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def kernel_args(h, v):
@@ -160,9 +205,12 @@ def main() -> int:
         t0 = time.perf_counter()
         fused.build()
         _log(f"   built two_loop in {time.perf_counter() - t0:.1f} s")
-        for line in cuda_build.build_logs.get("two_loop", "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                _log("   ptxas:", line.strip())
+        for line in ptxas_report(cuda_build.build_logs.get("two_loop", "")):
+            _log("   ptxas:", line)
+        for dtype in (torch.float32, torch.float64):
+            plan = fused.launch_plan(MAIN_BATCH, MAIN_M, MAIN_N, dtype,
+                                     fused.num_sms(dev))
+            _log(f"   plan {str(dtype)[6:]}: {plan}")
 
     smoke.phase("build the CUDA kernel", build)
     if smoke.failures:
@@ -180,6 +228,14 @@ def main() -> int:
         ("mixed/wrapped", 5, 24, 6, (0, 6, 9, 2, 7)),
         ("m=1", 3, 40, 1, (0, 1, 3)),
         ("m=33", 4, 33, 33, (0, 5, 33, 70)),
+        ("ragged walk", MAIN_BATCH + 1, MAIN_N, MAIN_M,
+         np.random.default_rng(4).integers(0, 3 * MAIN_M, MAIN_BATCH + 1)),
+        ("n=101", 300, 101, MAIN_M,
+         np.random.default_rng(5).integers(0, 3 * MAIN_M, 300)),
+        ("odd offset", 300, MAIN_N, MAIN_M,
+         np.random.default_rng(6).integers(0, 3 * MAIN_M, 300)),
+        ("n=1000", 300, 1000, MAIN_M,
+         np.random.default_rng(7).integers(0, 3 * MAIN_M, 300)),
     ]
 
     def compare():
@@ -192,7 +248,11 @@ def main() -> int:
                 device=dev)
             for dtype in (torch.float32, torch.float64):
                 h, v = cast(h64, dtype), v64.to(dtype)
+                if label == "odd offset":
+                    h = h._replace(s=at_odd_offset(torch, h.s))
+                    v = at_odd_offset(torch, v)
                 for mode in ("sweeps", "rinv"):
+                    plan = fused.plan_for(*kernel_args(h, v), mode)
                     got = fused.two_loop(*kernel_args(h, v), -1.0, mode)
                     want = fused.two_loop_plain(*kernel_args(h, v), -1.0,
                                                 mode)
@@ -200,10 +260,15 @@ def main() -> int:
                     err = (got - want).abs().max().item()
                     scale = want.abs().max().item()
                     ok = err <= tolerances[dtype] * scale
+                    paths = sorted(set(plan.copy.values()) - {"none"})
+                    if not plan.staged:
+                        paths.append("rows in memory")
                     _log(f"   {label:14s} B={batch:5d} m={m:2d} n={n:3d} "
                          f"{str(dtype)[6:]:8s} {mode:6s} max_abs_err="
                          f"{err:.3e} (scale {scale:.3e}) "
-                         f"{'ok' if ok else 'TOO LARGE'}")
+                         f"{'ok' if ok else 'TOO LARGE'}; copies "
+                         f"{'+'.join(paths)}, {plan.warps} warps x "
+                         f"{plan.stages} stages, grid {plan.grid}")
                     if not ok:
                         worst.append((label, str(dtype), mode, err))
                     if label == "main shape" and dtype == torch.float32 \
@@ -316,12 +381,18 @@ def main() -> int:
     # 5 ---------------------------------------------------------------
     def timing():
         res = main_state["res"]
-        h = res.history
-        v = res.grad.contiguous()
+        h32 = res.history
+        v32 = res.grad.contiguous()
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
         def median_ms(fn):
             fn()
+            torch.cuda.synchronize()
+            # Hold the card back while the host queues every launch, so
+            # that the events time the card's work and not the host's
+            # enqueue (a flush takes ~40 us; a wrapper's host side may
+            # take longer).
+            torch.cuda._sleep(HEAD_START_CYCLES)
             events = []
             for _ in range(TIMED_LAUNCHES):
                 flush.zero_()
@@ -334,12 +405,26 @@ def main() -> int:
             torch.cuda.synchronize()
             return float(np.median([a.elapsed_time(b) for a, b in events]))
 
+        src = torch.empty(COPY_PROBE_BYTES, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = median_ms(lambda: dst.copy_(src))
+        _log(f"   achievable bandwidth: a {COPY_PROBE_BYTES >> 20} MB device "
+             f"copy takes {copy_ms:.4f} ms = "
+             f"{2 * COPY_PROBE_BYTES / copy_ms / 1e9:.3f} TB/s read+write "
+             f"({2 * COPY_PROBE_BYTES / copy_ms * 1e3 / HBM_BYTES_PER_S:.1%}"
+             f" of {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        read_ms = median_ms(lambda: src.view(torch.float32).sum())
+        _log(f"   achievable read bandwidth: summing {COPY_PROBE_BYTES >> 20}"
+             f" MB takes {read_ms:.4f} ms = "
+             f"{COPY_PROBE_BYTES / read_ms / 1e9:.3f} TB/s")
+        del src, dst
+
         # The real state: the kernel must be no less accurate than the
         # plain version against an f64 evaluation of the same inputs.
-        ref = fused.two_loop_plain(*kernel_args(cast(h, torch.float64),
-                                                v.double()), -1.0, "rinv")
-        k32 = fused.two_loop(*kernel_args(h, v), -1.0, "rinv")
-        p32 = fused.two_loop_plain(*kernel_args(h, v), -1.0, "rinv")
+        ref = fused.two_loop_plain(*kernel_args(cast(h32, torch.float64),
+                                                v32.double()), -1.0, "rinv")
+        k32 = fused.two_loop(*kernel_args(h32, v32), -1.0, "rinv")
+        p32 = fused.two_loop_plain(*kernel_args(h32, v32), -1.0, "rinv")
         ek = (k32.double() - ref).abs().max().item()
         ep = (p32.double() - ref).abs().max().item()
         _log(f"   main-phase state, f32 rinv: |kernel - f64| {ek:.3e}, "
@@ -347,25 +432,44 @@ def main() -> int:
         if not ek <= 4.0 * ep + 1e-6 * ref.abs().max().item():
             raise AssertionError("kernel less accurate than plain on the "
                                  "main-phase state")
-        for mode in ("rinv", "sweeps"):
+        rows = smoke.kernel_rows
+        for dtype in (torch.float32, torch.float64):
+            h = h32 if dtype == torch.float32 else cast(h32, dtype)
+            v = v32.to(dtype)
             args = kernel_args(h, v)
-            k_ms = median_ms(lambda: fused.two_loop(*args, -1.0, mode))
-            p_ms = median_ms(lambda: fused.two_loop_plain(*args, -1.0,
-                                                          mode))
-            nbytes = two_loop_bytes(h, v, mode)
-            flops = two_loop_flops(MAIN_BATCH, MAIN_M, MAIN_N, mode)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-            bound = max(t_bytes, t_ops)
-            _log(f"   two_loop {mode:6s} B={MAIN_BATCH} m={MAIN_M} "
-                 f"n={MAIN_N} f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
-                 f"ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB; "
-                 f"{flops / 1e6:.1f} MFLOP = {t_ops:.4f} ms), "
-                 f"{bound / k_ms:.1%} of bound")
-            if mode == "rinv":
-                smoke.kernel_rows.update(
-                    ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+            name = str(dtype)[6:]
+            for mode in ("rinv", "sweeps"):
+                def new():
+                    return fused.two_loop(*args, -1.0, mode)
+
+                def simple():
+                    return fused.two_loop_simple(*args, -1.0, mode)
+                turns = [median_ms(f) for f in (simple, new, new, simple)]
+                k_ms = (turns[1] + turns[2]) / 2
+                s_ms = (turns[0] + turns[3]) / 2
+                p_ms = median_ms(lambda: fused.two_loop_plain(*args, -1.0,
+                                                              mode))
+                nbytes = two_loop_bytes(h, v, mode)
+                flops = two_loop_flops(MAIN_BATCH, MAIN_M, MAIN_N, mode)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[name] * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                _log(f"   two_loop {mode:6s} B={MAIN_BATCH} m={MAIN_M} "
+                     f"n={MAIN_N} {name}: kernel {k_ms:.4f} ms "
+                     f"({bound / k_ms:.1%} of bound), simple {s_ms:.4f} ms "
+                     f"({bound / s_ms:.1%}), turns simple/new/new/simple "
+                     f"{' '.join(f'{t:.4f}' for t in turns)}; plain "
+                     f"{p_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+                     f"({nbytes / 1e6:.1f} MB; {flops / 1e6:.1f} MFLOP = "
+                     f"{t_ops:.4f} ms)")
+                if name == "float32" and mode == "rinv":
+                    rows.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                bound_by=by, simple_ms=s_ms)
+                elif name == "float32":
+                    rows.update(sweeps_ms=k_ms)
+                elif mode == "rinv":
+                    rows.update(ms_f64=k_ms, bound_ms_f64=bound)
 
     if "res" in main_state:
         smoke.phase("kernel timing at the main path's shape", timing)
@@ -431,6 +535,10 @@ def main() -> int:
         "bound_ms": smoke.kernel_rows["bound_ms"],
         "bound_by": smoke.kernel_rows["bound_by"],
         "library_ms": None,     # no single PyTorch call computes a*H*v
+        "ms_f64": smoke.kernel_rows["ms_f64"],
+        "bound_ms_f64": smoke.kernel_rows["bound_ms_f64"],
+        "sweeps_ms": smoke.kernel_rows["sweeps_ms"],
+        "simple_ms": smoke.kernel_rows["simple_ms"],
     }
     print(card_line())
     print(json.dumps({"kernels": [kernel]}))

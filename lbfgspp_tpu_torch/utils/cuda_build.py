@@ -2,8 +2,8 @@
 
 Each library is compiled on first use from the sources under
 ``lbfgspp_tpu_torch/csrc/`` into ``lbfgspp_tpu_torch/_build/``, under a
-file name that carries a hash of the sources and the flags: editing a
-source (or the flags) builds a new library, and an unchanged checkout
+file name that carries a hash of the sources, the headers and the flags:
+editing any of them builds a new library, and an unchanged checkout
 reuses the one it built before.  The sources have a plain C interface, so
 the build does not include PyTorch's headers and takes seconds.
 
@@ -50,8 +50,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str, sources) -> str:
+    """The library's file name hashes the flags, the sources and every
+    header under ``csrc/`` (a source may include any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [*sources, *headers]:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
