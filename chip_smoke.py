@@ -34,9 +34,32 @@ Phases (any failure makes the script exit 1 and print no result):
    same way);
 6. profile 20 iterations of the main phase (``torch.profiler``): host ms,
    eager ops and kernel launches per iteration, device busy time and
-   idle share, and the top kernels and operators.
+   idle share, and the top kernels and operators;
+7. pair (df64) arithmetic on the card: ``two_sum``/``two_prod`` exact
+   against f64, a square exact against rationals, and the pair ops, the
+   compensated sum, ``exp`` and the pair objective of Rosenbrock equal to
+   the same calls on the CPU bit for bit (one rounding per eager op: no
+   FMA contraction, no folded constants);
+8. the kernel against its plain version at the df64 phases' pair shapes
+   (B=4096 and 768, n=200, m=16, histories lifted to pair space with zero
+   lo halves), in ``rinv`` and ``sweeps`` mode;
+9. the full three-phase main path at full width through
+   ``minimize_batched`` (bench.py:81-116): the phase-4 main phase, 5
+   warm-started df64 polish iterations and the deep stage (60 cold df64
+   iterations on the worst 3/16 of the batch), both with More-Thuente at
+   the full trial budget, after one warm-up run, three timed runs.  Prints
+   each phase's seconds, solves/s, batched pair evaluations (lockstep
+   More-Thuente trials) per iteration and the quality fractions after
+   each phase; the kernel's launches must equal main iterations + (1 warm
+   start + polish iterations) + deep iterations, the df64 interpreter
+   must take no fallback, every x must be finite and every instance
+   within 1e-4 of the optimum (the reference's every-run criterion);
+10. profile the polish and the deep stage's first 5 iterations
+   (``torch.profiler``): host ms, eager ops, launches and lockstep
+   More-Thuente trials per iteration, device busy time and idle share.
 
-The last lines are the card's name and power limit (nvidia-smi), a JSON
+Phase 5 also times the kernel at the pair shapes beside their bound.  The
+last lines are the card's name and power limit (nvidia-smi), a JSON
 ``kernels`` line, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,9 +82,13 @@ COPY_PROBE_BYTES = 64 << 20     # the achievable-bandwidth probe
 HEAD_START_CYCLES = 200_000_000  # ~0.1 s of card time before a timed run
 
 PROFILE_WARMUP, PROFILE_ITERS = 10, 20
+PROFILE_DEEP_ITERS = 5
 
 MAIN_BATCH, MAIN_N, MAIN_M = 4096, 100, 16
 MAIN_ITERS = 162
+POLISH_ITERS, DEEP_ITERS, DEEP_FRAC = 5, 60, 3 / 16
+DEEP_BATCH = max(1, min(MAIN_BATCH, int(round(DEEP_FRAC * MAIN_BATCH))))
+FULL_PATH_RUNS = 3
 DEVICE = "cuda"
 
 
@@ -155,6 +182,26 @@ def two_loop_flops(batch, m, n, mode) -> int:
     return batch * (8 * m * n + 2 * n + 2 * m * m * matvecs)
 
 
+def pair_state(torch, batch_mod, h, grad, batch, seed):
+    """The df64 phases' first two-loop input, built from a main-phase
+    final state: ``batch`` instances (all of them, or a random subset as
+    the deep stage refines), the history lifted to pair space (zero lo
+    halves, n -> 2n) and the pair gradient ``[g; g]``."""
+    from lbfgspp_tpu_torch.types import tree_map
+    idx = np.sort(np.random.default_rng(seed).permutation(
+        grad.shape[0])[:batch])
+    idx = torch.as_tensor(idx, device=grad.device)
+    g = grad[idx]
+    h2 = tree_map(lambda t: t[idx].contiguous(),
+                  batch_mod._lift_history_pairs(h, "rinv"))
+    return h2, torch.cat([g, g], dim=1).contiguous()
+
+
+def frac_within(x, tol) -> float:
+    return ((x.double() - 1.0).abs().max(dim=1).values <= tol).double() \
+        .mean().item()
+
+
 class Smoke:
     def __init__(self):
         self.failures = []
@@ -185,8 +232,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import lbfgspp_tpu_torch as lt
+        from lbfgspp_tpu_torch import batch as lbatch
         from lbfgspp_tpu_torch.ops import fused, history
         from lbfgspp_tpu_torch.utils import cuda_build, objectives
+        from lbfgspp_tpu_torch.utils import doublefloat as dfl
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -471,6 +520,33 @@ def main() -> int:
                 elif mode == "rinv":
                     rows.update(ms_f64=k_ms, bound_ms_f64=bound)
 
+        # The df64 phases' shape: pair space (n=200), f32, rinv, the whole
+        # batch (polish) and 3/16 of it (deep stage).
+        for label, batch in (("polish", MAIN_BATCH), ("deep", DEEP_BATCH)):
+            h, v = pair_state(torch, lbatch, h32, v32, batch, seed=batch)
+            args = kernel_args(h, v)
+            n2 = v.shape[1]
+            k_ms = median_ms(lambda: fused.two_loop(*args, -1.0, "rinv"))
+            p_ms = median_ms(lambda: fused.two_loop_plain(*args, -1.0,
+                                                          "rinv"))
+            nbytes = two_loop_bytes(h, v, "rinv")
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = two_loop_flops(batch, MAIN_M, n2, "rinv") / \
+                PEAK_FLOPS["float32"] * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            plan = fused.plan_for(*args, "rinv")
+            _log(f"   two_loop rinv B={batch} m={MAIN_M} n={n2} float32 "
+                 f"({label} shape): kernel {k_ms:.4f} ms ({bound / k_ms:.1%}"
+                 f" of bound); plain {p_ms:.4f} ms; bound {bound:.4f} ms by "
+                 f"{by} ({nbytes / 1e6:.1f} MB; operations {t_ops:.4f} ms);"
+                 f" plan {plan.warps} warps x {plan.stages} stages, grid "
+                 f"{plan.grid}, staged {plan.staged}")
+            rows.update({f"{label}_shape_ms": k_ms,
+                         f"{label}_shape_plain_ms": p_ms,
+                         f"{label}_shape_bound_ms": bound,
+                         f"{label}_shape_bound_by": by})
+
     if "res" in main_state:
         smoke.phase("kernel timing at the main path's shape", timing)
     else:
@@ -519,27 +595,362 @@ def main() -> int:
 
     smoke.phase("where the main phase's time goes", profile)
 
+    # 7 ---------------------------------------------------------------
+    def pair_arithmetic():
+        import fractions
+
+        rng = np.random.default_rng(21)
+        size = 1 << 20
+
+        def on_card(values, dtype=torch.float32):
+            return torch.as_tensor(values, dtype=dtype, device=dev)
+
+        a = on_card(rng.uniform(-10, 10, size))
+        b = on_card(rng.uniform(-1e-3, 1e-3, size))
+        c = on_card(rng.uniform(-30, 30, size))
+        s, e = dfl.two_sum(a, b)
+        bad_sum = int((s.double() + e.double() !=
+                       a.double() + b.double()).sum())
+        p, e = dfl.two_prod(a, c)
+        bad_prod = int((p.double() + e.double() !=
+                        a.double() * c.double()).sum())
+        _log(f"   f32 two_sum / two_prod on the card, {size} pairs each, "
+             f"against f64: {bad_sum} / {bad_prod} inexact")
+
+        a64 = on_card(rng.uniform(-10, 10, 4096), torch.float64)
+        b64 = on_card(rng.uniform(-10, 10, 4096), torch.float64)
+        c64 = b64 * 1e-9
+        p, e = dfl.two_prod(a64, b64)
+        s, f = dfl.two_sum(a64, c64)
+        F = fractions.Fraction
+        bad64 = sum(
+            F(pi) + F(ei) != F(ai) * F(bi) or F(si) + F(fi) != F(ai) + F(ci)
+            for ai, bi, ci, pi, ei, si, fi in zip(
+                *(t.cpu().tolist() for t in (a64, b64, c64, p, e, s, f))))
+        _log(f"   f64 two_sum / two_prod on the card, 4096 pairs, against "
+             f"rationals: {bad64} inexact")
+
+        # (1 + x) - 1: a compiler that folds the constant loses x's lo word
+        hi = on_card(np.linspace(-0.34, 0.34, 4096))
+        x = dfl.DF(hi, hi * 2.0 ** -30)
+        one = dfl.lift(torch.ones_like(hi))
+        lifted = dfl.add(one, x)
+        back = dfl.sub(lifted, one)
+        err_back = ((back.hi.double() + back.lo.double()) -
+                    (x.hi.double() + x.lo.double())).abs().max().item()
+        _log(f"   (1 + x) - 1 in f32 pairs: lo words kept "
+             f"{bool((lifted.lo != 0).any())}, |result - x| {err_back:.3e}")
+
+        # the same calls on the card and on the CPU, bit for bit
+        def bits(t):
+            return t.contiguous().view(torch.int32 if t.dtype ==
+                                       torch.float32 else torch.int64).cpu()
+
+        def same(got, want):
+            return all(torch.equal(bits(g), bits(w))
+                       for g, w in zip(got, want))
+
+        def random_pair(seed, shape, dtype, positive=False):
+            r = np.random.default_rng(seed)
+            h = r.uniform(0.0 if positive else -5.0, 5.0, shape)
+            h = torch.as_tensor(h, dtype=dtype)
+            lo = h * torch.as_tensor(r.uniform(-0.5, 0.5, shape),
+                                     dtype=dtype) * torch.finfo(dtype).eps
+            return dfl.DF(h, lo)
+
+        def to_dev(d):
+            return dfl.DF(d.hi.to(dev), d.lo.to(dev))
+
+        mismatched = []
+        for dtype in (torch.float32, torch.float64):
+            xa = random_pair(1, (64, 1000), dtype)
+            xb = random_pair(2, (64, 1000), dtype)
+            xp = random_pair(3, (64, 1000), dtype, positive=True)
+            cases = {
+                "add": lambda u, v, w: dfl.add(u, v),
+                "sub": lambda u, v, w: dfl.sub(u, v),
+                "mul": lambda u, v, w: dfl.mul(u, v),
+                "div": lambda u, v, w: dfl.div(u, v),
+                "sqrt": lambda u, v, w: dfl.sqrt(w),
+                "df_sum": lambda u, v, w: dfl.df_sum(u, (1,)),
+                "df_dot": lambda u, v, w: dfl.df_dot(u, v),
+                "exp": lambda u, v, w: dfl.exp(dfl.DF(u.hi * 6.0,
+                                                      u.lo * 6.0)),
+            }
+            for name, fn in cases.items():
+                got = fn(to_dev(xa), to_dev(xb), to_dev(xp))
+                if not same(got, fn(xa, xb, xp)):
+                    mismatched.append(f"{name} {str(dtype)[6:]}")
+        fg2 = dfl.df64_pair_fun_and_grad(objectives.rosenbrock)
+        r = np.random.default_rng(4)
+        hi2 = r.uniform(-2, 2, (256, MAIN_N)).astype(np.float32)
+        lo2 = (hi2 * r.uniform(-0.5, 0.5, hi2.shape) * 2.0 ** -24).astype(
+            np.float32)
+        x2 = torch.as_tensor(np.concatenate([hi2, lo2], axis=1))
+        dfl.FALLBACKS.clear()
+        if not same(fg2(x2.to(dev)), fg2(x2)):
+            mismatched.append("the pair objective of rosenbrock")
+        fallbacks = sum(dfl.FALLBACKS.values())
+        _log(f"   card against CPU, bit for bit (f32 and f64 pairs): add, "
+             f"sub, mul, div, sqrt, df_sum, df_dot, exp and the pair "
+             f"objective of rosenbrock: "
+             f"{'all equal' if not mismatched else 'DIFFER: ' + ', '.join(mismatched)}"
+             f"; interpreter fallbacks {fallbacks}")
+        if bad_sum or bad_prod or bad64 or mismatched or fallbacks or \
+                not err_back < 1e-13:
+            raise AssertionError("pair arithmetic is not exact on the card")
+
+    smoke.phase("pair (df64) arithmetic on the card", pair_arithmetic)
+
+    # 8 ---------------------------------------------------------------
+    def pair_kernel():
+        res = main_state["res"]
+        worst = []
+        for label, batch in (("polish", MAIN_BATCH), ("deep", DEEP_BATCH)):
+            h, v = pair_state(torch, lbatch, res.history, res.grad, batch,
+                              seed=batch)
+            zero_lo = bool((h.s[:, :, MAIN_N:] == 0).all()) and \
+                bool((h.y[:, :, MAIN_N:] == 0).all())
+            for mode in ("rinv", "sweeps"):
+                got = fused.two_loop(*kernel_args(h, v), -1.0, mode)
+                want = fused.two_loop_plain(*kernel_args(h, v), -1.0, mode)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                ok = err <= tolerances[torch.float32] * scale
+                _log(f"   {label} shape B={batch:5d} m={MAIN_M} "
+                     f"n={v.shape[1]} float32 {mode:6s} (main-phase state "
+                     f"lifted, lo halves zero: {zero_lo}): max_abs_err="
+                     f"{err:.3e} (scale {scale:.3e}) "
+                     f"{'ok' if ok else 'TOO LARGE'}")
+                if not (ok and zero_lo):
+                    worst.append((label, mode, err))
+                if label == "polish" and mode == "rinv":
+                    smoke.kernel_rows["pair_max_abs_err"] = err
+        if worst:
+            raise AssertionError(f"kernel disagrees with plain: {worst}")
+
+    if "res" in main_state:
+        smoke.phase("kernel vs plain version at the pair shapes", pair_kernel)
+    else:
+        smoke.failures.append("pair-shape kernel check (no main-phase state)")
+
+    # 9 ---------------------------------------------------------------
+    pparams = lt.LBFGSParams(epsilon=1e-5, max_iterations=MAIN_ITERS,
+                             m=MAIN_M)
+    recipe = dict(polish_iters=POLISH_ITERS, polish_params=pparams,
+                  polish_warm=True, polish_line_search="morethuente",
+                  deep_frac=DEEP_FRAC, deep_iters=DEEP_ITERS, **options)
+    full_state = {}
+
+    def full_path():
+        # Phase boundaries, read from the two batch functions the path
+        # calls between its phases (a sync on each side of the polish),
+        # and the batched pair evaluations (lockstep More-Thuente trials,
+        # the start point's and the exhausted searches' re-evaluations).
+        marks = {"polish": []}
+        polish_solve, merge = lbatch.polish_solve, lbatch._merge_polished
+        interpret, calls = dfl._interpret, [0]
+
+        def counted(*args):
+            calls[0] += 1
+            return interpret(*args)
+
+        def timed_polish(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0, calls[0] = time.perf_counter(), 0
+            out = polish_solve(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks["polish"].append((t0, time.perf_counter(), out, calls[0]))
+            return out
+
+        def kept_merge(res, pol):
+            marks["main"] = res
+            return merge(res, pol)
+
+        def solve():
+            return lt.minimize_batched(objectives.rosenbrock, x0s, params,
+                                       **recipe)
+
+        lbatch.polish_solve, lbatch._merge_polished = timed_polish, kept_merge
+        dfl._interpret = counted
+        try:
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            _log(f"   warm-up run {time.perf_counter() - t0:.2f} s")
+            runs = []
+            for rep in range(FULL_PATH_RUNS):
+                marks["polish"].clear()
+                dfl.FALLBACKS.clear()
+                fused.two_loop.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                launches = fused.two_loop.launches
+                fallbacks = sum(dfl.FALLBACKS.values())
+                (t1, t2, pol, pcalls), (d0, d1, deep, dcalls) = \
+                    marks["polish"]
+                main = marks["main"]
+                iters = [int(r.niter.max()) for r in (main, pol, deep)]
+                expected = iters[0] + 1 + iters[1] + iters[2]
+                secs = [t1 - t0, t2 - t1, t3 - t2, t3 - t0]
+                fracs = " | ".join(
+                    f"{label} {frac_within(r.x, 1e-3):.4f} "
+                    f"{frac_within(r.x, 1e-4):.4f}" for label, r in
+                    (("main", main), ("polish", pol), ("deep", res)))
+                _log(f"   run {rep}: main {secs[0]:.3f} s, polish "
+                     f"{secs[1]:.3f} s, deep {secs[2]:.3f} s (its solve "
+                     f"{d1 - d0:.3f} s), total {secs[3]:.3f} s = "
+                     f"{MAIN_BATCH / secs[3]:.1f} solves/s; iterations main "
+                     f"{iters[0]}, polish {iters[1]}, deep {iters[2]}; "
+                     f"batched pair evaluations per iteration polish "
+                     f"{(pcalls - 1) / iters[1]:.2f}, deep "
+                     f"{(dcalls - 1) / iters[2]:.2f}; "
+                     f"kernel launches {launches}, expected {iters[0]} + "
+                     f"(1 + {iters[1]}) + {iters[2]} = {expected}; "
+                     f"interpreter fallbacks {fallbacks}; frac_within "
+                     f"1e-3 1e-4 after each phase: {fracs}")
+                if launches != expected:
+                    raise AssertionError(f"launches {launches} != expected "
+                                         f"{expected}")
+                if fallbacks:
+                    raise AssertionError(f"df64 fallbacks: "
+                                         f"{dict(dfl.FALLBACKS)}")
+                runs.append(secs)
+        finally:
+            lbatch.polish_solve, lbatch._merge_polished = polish_solve, merge
+            dfl._interpret = interpret
+        full_state.update(launches=launches, main=main,
+                          polished=merge(main, pol))
+        med = np.median(np.asarray(runs), axis=0)
+        _log(f"   full path B={MAIN_BATCH} n={MAIN_N} m={MAIN_M} (f32 main "
+             f"rinv mls=2 restart; {POLISH_ITERS} warm df64 polish "
+             f"iterations; deep stage {DEEP_ITERS} iterations on "
+             f"{DEEP_BATCH} instances; More-Thuente): median seconds main "
+             f"{med[0]:.3f}, polish {med[1]:.3f}, deep {med[2]:.3f}, total "
+             f"{med[3]:.3f} = {MAIN_BATCH / med[3]:.1f} solves/s")
+        x = res.x.double()
+        if not torch.isfinite(x).all():
+            raise AssertionError("non-finite x after the full path")
+        err = (x - 1.0).abs().max(dim=1).values
+        miss = torch.nonzero(err > 1e-4).flatten().tolist()
+        _log(f"   every-run criterion max|x - 1| <= 1e-4: "
+             f"frac_within_1e-4={(err <= 1e-4).double().mean().item():.4f}, "
+             f"worst {err.max().item():.3e}; instances beyond: "
+             f"{[(i, round(err[i].item(), 8)) for i in miss] or 'none'}")
+        if miss:
+            raise AssertionError(f"{len(miss)} instances beyond 1e-4")
+
+    if "res" in main_state:
+        smoke.phase("the full three-phase main path at full width",
+                    full_path)
+    else:
+        smoke.failures.append("full path (the main phase failed)")
+
+    # 10 --------------------------------------------------------------
+    def profile_df64():
+        from torch.profiler import ProfilerActivity
+        main, polished = full_state["main"], full_state["polished"]
+        calls = [0]
+        interpret = dfl._interpret
+
+        def counted(*args):
+            calls[0] += 1
+            return interpret(*args)
+
+        def polish():
+            return lbatch.polish_solve(
+                objectives.rosenbrock, main.x, pparams, POLISH_ITERS,
+                line_search="morethuente", direction="rinv",
+                warm_history=main.history, device=dev)
+
+        def deep():
+            # its first iterations: the profiler's own cost grows with
+            # every event, and a deep iteration runs ~30,000 eager ops
+            return lbatch.deep_polish(
+                objectives.rosenbrock, polished, pparams, DEEP_BATCH,
+                PROFILE_DEEP_ITERS, line_search="morethuente",
+                direction="rinv")
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        dfl._interpret = counted
+        try:
+            for label, run in (("polish", polish), ("deep", deep)):
+                calls[0] = 0
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                if label == "polish":
+                    niter, nfev = out.niter, out.nfev - 1
+                else:
+                    picked = out.niter != polished.niter
+                    niter = (out.niter - polished.niter)[picked]
+                    nfev = (out.nfev - polished.nfev)[picked] - 1
+                steps = int(niter.max())
+                events = prof.key_averages()
+                ops = sum(e.count for e in events
+                          if e.key.startswith("aten::"))
+                kernels = [e for e in events
+                           if e.device_type.name == "CUDA"]
+                busy_ms = sum(e.self_device_time_total
+                              for e in kernels) / 1e3
+                _log(f"   {label}: {steps} iterations of {niter.numel()} "
+                     f"instances, profiler on: {wall:.3f} s, host "
+                     f"{wall / steps * 1e3:.3f} ms/iteration, "
+                     f"{ops / steps:.1f} aten ops and "
+                     f"{sum(e.count for e in kernels) / steps:.1f} kernel "
+                     f"launches per iteration; device busy "
+                     f"{busy_ms / steps:.3f} ms/iteration, idle share "
+                     f"{1 - busy_ms / 1e3 / wall:.3f}; batched pair "
+                     f"evaluations (lockstep More-Thuente trials) per "
+                     f"iteration {(calls[0] - 1) / steps:.3f}; evaluations "
+                     f"per instance per iteration mean "
+                     f"{nfev.sum().item() / niter.sum().item():.3f}")
+                for e in sorted(kernels,
+                                key=lambda e: -e.self_device_time_total)[:5]:
+                    _log(f"   {e.self_device_time_total / steps / 1e3:8.4f}"
+                         f" ms {e.count / steps:7.1f}x  {e.key[:80]}")
+        finally:
+            dfl._interpret = interpret
+
+    if "polished" in full_state:
+        smoke.phase("where the df64 phases' time goes", profile_df64)
+
     if smoke.failures:
         _log("FAILED: " + ", ".join(smoke.failures))
         return 1
 
+    rows = smoke.kernel_rows
     kernel = {
         "name": "two_loop",
         "route": "cuda",
         "source": "lbfgspp_tpu_torch/csrc/two_loop.cu",
         "replaces": "lbfgspp_tpu/ops/fused.py:111",
-        "launches": main_state["launches"],
-        "max_abs_err": smoke.kernel_rows["max_abs_err"],
-        "ms": smoke.kernel_rows["ms"],
-        "plain_ms": smoke.kernel_rows["plain_ms"],
-        "bound_ms": smoke.kernel_rows["bound_ms"],
-        "bound_by": smoke.kernel_rows["bound_by"],
+        # the full three-phase path's launches (phase 9)
+        "launches": full_state["launches"],
+        "max_abs_err": rows["max_abs_err"],
+        "ms": rows["ms"],
+        "plain_ms": rows["plain_ms"],
+        "bound_ms": rows["bound_ms"],
+        "bound_by": rows["bound_by"],
         "library_ms": None,     # no single PyTorch call computes a*H*v
-        "ms_f64": smoke.kernel_rows["ms_f64"],
-        "bound_ms_f64": smoke.kernel_rows["bound_ms_f64"],
-        "sweeps_ms": smoke.kernel_rows["sweeps_ms"],
-        "simple_ms": smoke.kernel_rows["simple_ms"],
+        "main_phase_launches": main_state["launches"],
+        "ms_f64": rows["ms_f64"],
+        "bound_ms_f64": rows["bound_ms_f64"],
+        "sweeps_ms": rows["sweeps_ms"],
+        "simple_ms": rows["simple_ms"],
+        "pair_max_abs_err": rows["pair_max_abs_err"],
     }
+    for label in ("polish", "deep"):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            kernel[f"{label}_shape_{key}"] = rows[f"{label}_shape_{key}"]
     print(card_line())
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ from .types import (Status, SolveResult, LineSearchResult, SUCCESS_STATUSES,
                     make_fun_and_grad)
 from .lbfgs import minimize, solver, Solver, LBFGSState
 from .batch import minimize_batched
+from .df64 import minimize_df64
 
 __all__ = [
     "LBFGSParams", "LBFGSBParams",
@@ -24,5 +25,5 @@ __all__ = [
     "Status", "SolveResult", "LineSearchResult", "SUCCESS_STATUSES",
     "make_fun_and_grad",
     "minimize", "solver", "Solver", "LBFGSState",
-    "minimize_batched",
+    "minimize_batched", "minimize_df64",
 ]

@@ -25,7 +25,7 @@ from .linesearch import get_line_search
 from .ops import history as hist_ops
 from .params import LBFGSParams
 from .types import (SolveResult, Status, freeze_when, i32_like,
-                    make_fun_and_grad, resolve_device)
+                    make_fun_and_grad, resolve_device, tree_map)
 
 Tensor = torch.Tensor
 
@@ -114,6 +114,17 @@ def solver(fun: Optional[Callable] = None,
        where its f32 solution quality was measured safe; a
        ``UserWarning`` fires.
     """
+    return _build_solver(make_fun_and_grad(fun, fun_and_grad), params,
+                         line_search=line_search, direction=direction,
+                         on_ls_fail=on_ls_fail, device=device)
+
+
+def _build_solver(fg, params: LBFGSParams, *,
+                  line_search="nocedalwright", direction: str = "sweeps",
+                  on_ls_fail: str = "stop", device=None) -> Solver:
+    """:func:`solver` on a ready batched oracle ``fg(x [B, n]) -> (fx [B],
+    grad [B, n])``, such as a pair-space oracle of
+    :mod:`.utils.doublefloat`."""
     if on_ls_fail not in ("stop", "restart"):
         raise ValueError(f"on_ls_fail must be 'stop' or 'restart', "
                          f"got {on_ls_fail!r}")
@@ -132,7 +143,6 @@ def solver(fun: Optional[Callable] = None,
             f"direction='sweeps' for large histories",
             UserWarning, stacklevel=2)
     device = resolve_device(device)
-    fg = make_fun_and_grad(fun, fun_and_grad)
     search = get_line_search(line_search)
     fpast = params.past
     restart = on_ls_fail == "restart"
@@ -271,11 +281,7 @@ def solver(fun: Optional[Callable] = None,
 def unbatch(tree):
     """Drop the batch axis of a B = 1 NamedTuple of tensors (``None``
     fields stay ``None``)."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple):
-        return type(tree)(*(unbatch(t) for t in tree))
-    return tree[0]
+    return tree_map(lambda t: t[0], tree)
 
 
 def minimize(fun: Optional[Callable] = None,

@@ -1,7 +1,7 @@
 """Pluggable line searches of the port.
 
-The same registry as ``lbfgspp_tpu.linesearch``, holding only the searches
-ported so far.  Every search takes the batched unified signature
+The same registry as ``lbfgspp_tpu.linesearch``.  Every search takes the
+batched unified signature
 
 ``search(fg, param, xp, drt, step_max, step0, fx0, grad0, dg0, active)``
 
@@ -10,10 +10,19 @@ a scalar, and ``active [B]`` (or None for all) the instances to search for;
 the others return their starting point untouched.
 """
 
+from .backtracking import backtracking
+from .bracketing import bracketing
+from .morethuente import morethuente
 from .nocedalwright import nocedalwright
+from .speculative import make_speculative, speculative
 
 LINE_SEARCHES = {
+    "backtracking": backtracking,
+    "bracketing": bracketing,
+    "morethuente": morethuente,
     "nocedalwright": nocedalwright,
+    # batched-throughput search with no reference counterpart
+    "speculative": speculative,
 }
 
 
@@ -28,4 +37,6 @@ def get_line_search(name_or_fn):
             f"{sorted(LINE_SEARCHES)}") from None
 
 
-__all__ = ["nocedalwright", "LINE_SEARCHES", "get_line_search"]
+__all__ = ["backtracking", "bracketing", "morethuente", "nocedalwright",
+           "speculative", "make_speculative", "LINE_SEARCHES",
+           "get_line_search"]

@@ -20,7 +20,11 @@ from several start seeds through ``fused.two_loop``, then with
 ``fused.two_loop_plain`` in its place: three summation orders of one
 function, everything else the same code.  It prints the instances further
 than 1e-4 / 1e-3 from the optimum under each, and the error of every call
-against the same function evaluated in f64 on the same inputs.
+against the same function evaluated in f64 on the same inputs.  Then the
+whole three-phase path of ``chip_smoke.py`` phase 9 (the main phase, 5
+warm df64 polish iterations, the deep stage) runs from the same starts
+with the same kernel in every phase, and the instances it leaves beyond
+1e-4 are printed with their distance.
 
 Both write their results to ``chiprun_out/two_loop_study.json`` and print
 the card's name and power limit.
@@ -54,6 +58,7 @@ TIMED_LAUNCHES = 25
 HEAD_START_CYCLES = 200_000_000
 QUALITY_SEEDS = tuple(range(10))
 MAIN_N, MAIN_ITERS = 100, 162
+POLISH_ITERS, DEEP_ITERS, DEEP_FRAC = 5, 60, 3 / 16
 
 
 def card_line() -> str:
@@ -198,9 +203,25 @@ def tracked(kernel, errors):
     return call
 
 
+def beyond(x, tol):
+    """The instances further than ``tol`` from the optimum, and the
+    distance of each."""
+    err = (x.double() - 1.0).abs().max(dim=1).values.cpu()
+    idx = np.flatnonzero(err.numpy() > tol)
+    return {int(i): float(err[i]) for i in idx}
+
+
 def study_quality(dev):
     params = lt.LBFGSParams(epsilon=1e-5, max_iterations=MAIN_ITERS, m=M,
                             max_linesearch=2)
+    main = dict(direction="rinv", on_ls_fail="restart", device=dev)
+    # the bench recipe's df64 phases (chip_smoke.py phase 9)
+    recipe = dict(polish_iters=POLISH_ITERS, polish_warm=True,
+                  polish_params=lt.LBFGSParams(epsilon=1e-5,
+                                               max_iterations=MAIN_ITERS,
+                                               m=M),
+                  polish_line_search="morethuente", deep_frac=DEEP_FRAC,
+                  deep_iters=DEEP_ITERS, **main)
     kernels = {"two_loop": fused.two_loop,
                "two_loop_simple": fused.two_loop_simple,
                "two_loop_plain": fused.two_loop_plain}
@@ -216,19 +237,21 @@ def study_quality(dev):
                 fused.two_loop = tracked(kernel, errors)
                 if not rows and not misses:    # warm-up
                     lt.minimize_batched(objectives.rosenbrock, x0s, params,
-                                        direction="rinv",
-                                        on_ls_fail="restart", device=dev)
+                                        **main)
                     errors.clear()
                 res = lt.minimize_batched(objectives.rosenbrock, x0s,
-                                          params, direction="rinv",
-                                          on_ls_fail="restart", device=dev)
-                err = (res.x.double() - 1.0).abs().max(dim=1).values.cpu()
-                miss4 = set(np.flatnonzero(err.numpy() > 1e-4).tolist())
-                miss3 = int((err > 1e-3).sum())
+                                          params, **main)
+                miss4 = set(beyond(res.x, 1e-4))
+                miss3 = len(beyond(res.x, 1e-3))
                 rel = torch.stack(errors)            # [calls, B]
+                # the whole path, its every call through the same kernel
+                fused.two_loop = kernel
+                full = beyond(lt.minimize_batched(
+                    objectives.rosenbrock, x0s, params, **recipe).x, 1e-4)
                 misses[label] = miss4
                 rows.append(dict(seed=seed, kernel=label, misses_1e4=
                                  sorted(miss4), misses_1e3=miss3,
+                                 full_path_misses_1e4=full,
                                  rel_err_median=rel.median().item(),
                                  rel_err_p99=rel.quantile(0.99).item(),
                                  rel_err_max=rel.max().item()))
@@ -238,7 +261,9 @@ def study_quality(dev):
                       f"error against f64 per "
                       f"call and instance: median {rows[-1]['rel_err_median']:.3e}"
                       f", p99 {rows[-1]['rel_err_p99']:.3e}, max "
-                      f"{rows[-1]['rel_err_max']:.3e}", flush=True)
+                      f"{rows[-1]['rel_err_max']:.3e}; after the df64 polish "
+                      f"and deep stage {len(full)} beyond 1e-4 "
+                      f"{full or ''}", flush=True)
             a = misses["two_loop"]
             for label in list(kernels)[1:]:
                 b = misses[label]
@@ -247,8 +272,10 @@ def study_quality(dev):
         for label in kernels:
             mine = [r for r in rows if r["kernel"] == label]
             total = sum(len(r["misses_1e4"]) for r in mine)
+            left = sum(len(r["full_path_misses_1e4"]) for r in mine)
             print(f"   all seeds, {label}: {total} misses of "
-                  f"{BATCH * len(QUALITY_SEEDS)} at 1e-4; error against f64 "
+                  f"{BATCH * len(QUALITY_SEEDS)} at 1e-4 after the main "
+                  f"phase, {left} after the full path; error against f64 "
                   f"median of medians "
                   f"{np.median([r['rel_err_median'] for r in mine]):.3e}, "
                   f"worst p99 {max(r['rel_err_p99'] for r in mine):.3e}",

@@ -142,6 +142,17 @@ def tree_select(pred: Tensor, on_true, on_false):
     return torch.where(_bcast(pred, on_true), on_true, on_false)
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of matching NamedTuples (``None`` fields
+    stay ``None``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_map(fn, *leaves)
+                            for leaves in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
 def freeze_when(pred: Tensor, state, update_fn):
     """``update_fn(state)`` for the instances where ``pred`` is False; the
     others pass through unchanged (the frozen carry that ``vmap`` of a

@@ -2,6 +2,7 @@
 options of the JAX package it does not take yet."""
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -10,7 +11,6 @@ import pytest
 import torch
 
 import lbfgspp_tpu_torch as T
-from lbfgspp_tpu_torch import batch
 from lbfgspp_tpu_torch.ops import history
 from lbfgspp_tpu_torch.utils import objectives
 
@@ -88,15 +88,25 @@ def test_entry_points_raise_without_cuda(name, monkeypatch):
     ("deep_iters", 60), ("deep_selection", "hstep"),
 ])
 def test_unported_minimize_batched_options_raise(option, value):
+    """Of the JAX package's minimize_batched options only ``mesh`` still
+    waits for a later slice and raises; every other one is taken, and its
+    default (the JAX package's) leaves the result as it is without it."""
     x0 = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.minimize_batched(objectives.quadratic, x0,
-                           T.LBFGSParams(max_iterations=5), device="cpu",
-                           **{option: value})
-    # the JAX package's default, which leaves the option off, is accepted
-    T.minimize_batched(objectives.quadratic, x0,
-                       T.LBFGSParams(max_iterations=5), device="cpu",
-                       **{option: batch._NOT_YET_PORTED[option]})
+    default = inspect.signature(T.minimize_batched).parameters[option]
+
+    def call(**kw):
+        return T.minimize_batched(objectives.quadratic, x0,
+                                  T.LBFGSParams(max_iterations=5),
+                                  device="cpu", **kw)
+
+    plain = call()
+    same = call(**{option: default.default})
+    assert all(torch.equal(a, b) for a, b in zip(plain[:7], same[:7]))
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            call(mesh=value)
+    else:
+        assert torch.isfinite(call(**{option: value}).x).all()
 
 
 def test_unknown_minimize_batched_option_is_a_type_error():

@@ -199,6 +199,90 @@ def test_forced_unstaged_plan_matches_plain(cuda, mode):
         1e-12 * want.abs().max().item()
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("mode", ["sweeps", "rinv"])
+@pytest.mark.parametrize("batch", [768, 4096])
+def test_kernel_matches_plain_at_the_pair_shape(cuda, dtype, rtol, mode,
+                                                batch):
+    """The df64 phases' input: a history lifted to pair space (n=100 ->
+    200, zero lo halves) and the pair gradient [g; g]."""
+    from lbfgspp_tpu_torch import batch as batch_mod
+    h = _cached_history(batch, 100, 16,
+                        tuple(c % 48 for c in range(batch)), 16)
+    h = _on_card(batch_mod._lift_history_pairs(h, "rinv"), cuda, dtype)
+    g = torch.as_tensor(np.random.default_rng(2).standard_normal((batch, 100)),
+                        dtype=dtype, device=cuda)
+    v = torch.cat([g, g], dim=1)
+    got = fused.two_loop(*_args(h, v), -1.0, mode)
+    want = fused.two_loop_plain(*_args(h, v), -1.0, mode)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= \
+        rtol * want.abs().max().item()
+
+
+def test_pair_transforms_exact_on_card(cuda):
+    """The card's counterpart of the JAX package's exact-under-jit test:
+    each eager op rounds once, so two_sum / two_prod are exact against
+    f64, ``(1 + x) - 1`` keeps x's lo word, and pair products and sums
+    equal the CPU's bit for bit."""
+    from lbfgspp_tpu_torch.utils import doublefloat as dfl
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.uniform(-10, 10, 1 << 16), dtype=torch.float32)
+    b = torch.as_tensor(rng.uniform(-30, 30, 1 << 16), dtype=torch.float32)
+    ac, bc = a.to(cuda), b.to(cuda)
+    s, e = dfl.two_sum(ac, bc * 1e-4)
+    assert torch.equal(s.double() + e.double(),
+                       ac.double() + (bc * 1e-4).double())
+    p, e = dfl.two_prod(ac, bc)
+    assert torch.equal(p.double() + e.double(), ac.double() * bc.double())
+    x = dfl.DF(ac * 0.03, ac * 2.0 ** -30)
+    one = dfl.lift(torch.ones_like(ac))
+    back = dfl.sub(dfl.add(one, x), one)
+    err = (back.hi.double() + back.lo.double()) - \
+        (x.hi.double() + x.lo.double())
+    assert err.abs().max().item() < 1e-13
+    xa, xb = dfl.DF(a, a * 2.0 ** -26), dfl.DF(b, b * 2.0 ** -27)
+    for op in (dfl.add, dfl.mul, dfl.div):
+        got = op(dfl.DF(*(t.to(cuda) for t in xa)),
+                 dfl.DF(*(t.to(cuda) for t in xb)))
+        want = op(xa, xb)
+        assert torch.equal(got.hi.cpu(), want.hi)
+        assert torch.equal(got.lo.cpu(), want.lo)
+    got = dfl.df_sum(dfl.DF(*(t.to(cuda) for t in xa)), (0,))
+    want = dfl.df_sum(xa, (0,))
+    assert torch.equal(got.hi.cpu(), want.hi)
+    assert torch.equal(got.lo.cpu(), want.lo)
+
+
+def test_df64_phases_launch_once_per_iteration(cuda):
+    """The bench recipe on the card at a small batch: the warm polish
+    launches once for its first direction and once per iteration, the deep
+    stage once per iteration, and every instance ends within 1e-4."""
+    from lbfgspp_tpu_torch import batch as batch_mod
+    x0 = np.random.default_rng(1).uniform(-2.0, 2.0, (64, 100))
+    main = lt.LBFGSParams(epsilon=1e-5, max_iterations=162, m=16,
+                          max_linesearch=2)
+    full = lt.LBFGSParams(epsilon=1e-5, max_iterations=162, m=16)
+    res = lt.minimize_batched(objectives.rosenbrock,
+                              torch.as_tensor(x0, dtype=torch.float32), main,
+                              direction="rinv", on_ls_fail="restart",
+                              device=cuda)
+    before = fused.two_loop.launches
+    pol = batch_mod.polish_solve(objectives.rosenbrock, res.x, full, 5,
+                                 direction="rinv", warm_history=res.history,
+                                 device=cuda)
+    assert fused.two_loop.launches - before == 1 + int(pol.niter.max())
+    merged = batch_mod._merge_polished(res, pol)
+    before = fused.two_loop.launches
+    deep = batch_mod.deep_polish(objectives.rosenbrock, merged, full, 12, 60,
+                                 direction="rinv")
+    added = deep.niter - merged.niter
+    assert fused.two_loop.launches - before == int(added.max())
+    assert int((added > 0).sum()) == 12
+    assert (deep.x - 1.0).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("direction", ["sweeps", "rinv"])
 def test_batched_solve_launches_once_per_iteration(cuda, direction):
     x0 = np.random.default_rng(0).uniform(-1.0, 1.0, (8, 10))
