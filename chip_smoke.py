@@ -56,7 +56,32 @@ Phases (any failure makes the script exit 1 and print no result):
    within 1e-4 of the optimum (the reference's every-run criterion);
 10. profile the polish and the deep stage's first 5 iterations
    (``torch.profiler``): host ms, eager ops, launches and lockstep
-   More-Thuente trials per iteration, device busy time and idle share.
+   More-Thuente trials per iteration, device busy time and idle share;
+11. the box-constrained path at full width (bench.py:139-175):
+   ``minimize_b_batched`` on 4096 Rosenbrock starts, n=10, in [2, 4], f32,
+   the prefix GCP, with the active-set df64 polish (``polish_iters=4``),
+   after one warm-up run, three timed runs; then the same with x[2]
+   unbounded (as in example-rosenbrock-box.cpp), whose polish has a free
+   coordinate to refine.  Prints the seconds of the box solve and of the
+   polish, box solves/s, batched evaluations per iteration, the BOXCQP
+   lockstep iterations and exit-test syncs, the polish's L-BFGS steps and
+   frac_within_1e-4 of (2, 4, ...) before and after the polish.  The
+   two-loop kernel's launches must equal the polish's steps (the bench
+   recipe's polish pins every coordinate and takes none); every x must be
+   finite, every instance of the bench recipe within 1e-4 with fx <= 5 +
+   1e-3, and the free variant's pinned pairs within 1e-4;
+12. the kernel against its plain version on the box polish's own calls
+   (B=4096, m=6, n=20 pair space, ``sweeps``), f32 and f64, and its time
+   there beside its bound;
+13. the kernel's error against the same function evaluated in f64 on the
+   same f32 inputs, per call and instance, beside ``two_loop_simple``'s
+   and the plain version's, at the main shape (every 8th call of the main
+   phase), the pair shape (the polish's calls) and the box shape (the box
+   polish's calls): the kernel's median and 99th percentile must not
+   exceed the plain version's;
+14. profile 10 box iterations (``torch.profiler``): host ms, eager ops,
+   launches and device-to-host reads per iteration, device busy time and
+   idle share.
 
 Phase 5 also times the kernel at the pair shapes beside their bound.  The
 last lines are the card's name and power limit (nvidia-smi), a JSON
@@ -89,6 +114,8 @@ MAIN_ITERS = 162
 POLISH_ITERS, DEEP_ITERS, DEEP_FRAC = 5, 60, 3 / 16
 DEEP_BATCH = max(1, min(MAIN_BATCH, int(round(DEEP_FRAC * MAIN_BATCH))))
 FULL_PATH_RUNS = 3
+BOX_BATCH, BOX_N, BOX_ITERS, BOX_POLISH_ITERS = 4096, 10, 60, 4
+BOX_RUNS, PROFILE_BOX_ITERS = 3, 10
 DEVICE = "cuda"
 
 
@@ -197,6 +224,32 @@ def pair_state(torch, batch_mod, h, grad, batch, seed):
     return h2, torch.cat([g, g], dim=1).contiguous()
 
 
+def cast_args(args, dtype):
+    return tuple(t.to(dtype) if t is not None and t.is_floating_point()
+                 else t for t in args)
+
+
+def median_ms_of(torch, fn, flush) -> float:
+    """CUDA-event time of ``fn``: the median of TIMED_LAUNCHES launches,
+    the L2 flushed before each, the card held back while the host queues
+    them all (so that the events time the card's work, not the host's
+    enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES)
+    events = []
+    for _ in range(TIMED_LAUNCHES):
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
 def frac_within(x, tol) -> float:
     return ((x.double() - 1.0).abs().max(dim=1).values <= tol).double() \
         .mean().item()
@@ -234,6 +287,7 @@ def main() -> int:
         import lbfgspp_tpu_torch as lt
         from lbfgspp_tpu_torch import batch as lbatch
         from lbfgspp_tpu_torch.ops import fused, history
+        from lbfgspp_tpu_torch.tools.capture import capture_calls
         from lbfgspp_tpu_torch.utils import cuda_build, objectives
         from lbfgspp_tpu_torch.utils import doublefloat as dfl
     except ImportError as e:
@@ -435,24 +489,7 @@ def main() -> int:
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
         def median_ms(fn):
-            fn()
-            torch.cuda.synchronize()
-            # Hold the card back while the host queues every launch, so
-            # that the events time the card's work and not the host's
-            # enqueue (a flush takes ~40 us; a wrapper's host side may
-            # take longer).
-            torch.cuda._sleep(HEAD_START_CYCLES)
-            events = []
-            for _ in range(TIMED_LAUNCHES):
-                flush.zero_()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                fn()
-                e1.record()
-                events.append((e0, e1))
-            torch.cuda.synchronize()
-            return float(np.median([a.elapsed_time(b) for a, b in events]))
+            return median_ms_of(torch, fn, flush)
 
         src = torch.empty(COPY_PROBE_BYTES, dtype=torch.uint8, device=dev)
         dst = torch.empty_like(src)
@@ -555,12 +592,18 @@ def main() -> int:
     # 6 ---------------------------------------------------------------
     def profile():
         from torch.profiler import ProfilerActivity
-        s = lt.solver(objectives.rosenbrock, params, **options)
+        calls = [0]
+
+        def counted_rosenbrock(x):
+            calls[0] += 1
+            return objectives.rosenbrock(x)
+
+        s = lt.solver(counted_rosenbrock, params, **options)
         state = s.init(x0s)
         for _ in range(PROFILE_WARMUP):
             state = s.step(state)
         torch.cuda.synchronize()
-        nfev0 = state.nfev.clone()
+        nfev0, calls0 = state.nfev.clone(), calls[0]
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         with torch.profiler.profile(activities=acts) as prof:
@@ -573,6 +616,7 @@ def main() -> int:
         events = prof.key_averages()
         ops = sum(e.count for e in events if e.key.startswith("aten::"))
         evals = (state.nfev - nfev0).double() / it
+        batched = (calls[0] - calls0) / it
         kernels = [e for e in events if e.device_type.name == "CUDA"]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         _log(f"   iterations {PROFILE_WARMUP + 1}-{PROFILE_WARMUP + it}, "
@@ -582,7 +626,9 @@ def main() -> int:
              f"iteration; device busy {busy_ms / it:.3f} ms/iteration, "
              f"idle share {1 - busy_ms / 1e3 / wall:.3f}; objective "
              f"evaluations per instance per iteration mean "
-             f"{evals.mean().item():.3f} max {evals.max().item():.3f}")
+             f"{evals.mean().item():.3f} max {evals.max().item():.3f}; "
+             f"batched evaluations (line-search trials) per iteration "
+             f"{batched:.2f}")
         _log("   top kernels, ms and launches per iteration:")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             _log(f"   {e.self_device_time_total / it / 1e3:8.4f} "
@@ -923,6 +969,247 @@ def main() -> int:
     if "polished" in full_state:
         smoke.phase("where the df64 phases' time goes", profile_df64)
 
+    # 11 --------------------------------------------------------------
+    # The box-constrained path (bench.py:139-175): the bench's box recipe
+    # as it stands, and the same with coordinate 2 unbounded (as in
+    # example-rosenbrock-box.cpp), whose polish has a free coordinate to
+    # refine and so takes L-BFGS steps that launch the two-loop kernel.
+    box_state = {}
+    bx0s = torch.as_tensor(np.random.default_rng(0).uniform(
+        2.0, 4.0, (BOX_BATCH, BOX_N)), dtype=torch.float32, device=dev)
+    bparams = lt.LBFGSBParams(epsilon=1e-6, max_iterations=BOX_ITERS)
+    xstar_box = torch.as_tensor(np.tile([2.0, 4.0], BOX_N // 2), device=dev)
+
+    def box_path():
+        from lbfgspp_tpu_torch import lbfgs as tlbfgs
+        from lbfgspp_tpu_torch.ops import subspace
+
+        evals = [0]
+
+        def counted_rosenbrock(x):
+            evals[0] += 1
+            return objectives.rosenbrock(x)
+
+        marks = {}
+        polish_b, build = lbatch.polish_solve_b, tlbfgs._build_solver
+
+        def timed_polish(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks["polish_start"] = (time.perf_counter(), evals[0])
+            marks["box"] = kwargs["prior"]
+            out = polish_b(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks["polish_end"] = time.perf_counter()
+            return out
+
+        def counting_build(*args, **kwargs):
+            # the polish's solver, its batched steps counted (run as
+            # lbfgs.solver's run does)
+            s = build(*args, **kwargs)
+
+            def step(c):
+                marks["polish_steps"] += 1
+                return s.step(c)
+
+            def run(c):
+                while not bool(c.done.all()):
+                    c = step(c)
+                return c
+            return s._replace(step=step, run=run)
+
+        def solve(lb, ub):
+            return lt.minimize_b_batched(
+                counted_rosenbrock, bx0s, lb, ub, bparams, gcp="prefix",
+                polish_iters=BOX_POLISH_ITERS, device=dev)
+
+        variants = {
+            "bench": (torch.full((BOX_N,), 2.0, device=dev),
+                      torch.full((BOX_N,), 4.0, device=dev)),
+            "free x[2]": (torch.full((BOX_N,), 2.0, device=dev).index_fill(
+                0, torch.tensor([2], device=dev), -float("inf")),
+                torch.full((BOX_N,), 4.0, device=dev).index_fill(
+                0, torch.tensor([2], device=dev), float("inf")))}
+        lbatch.polish_solve_b = timed_polish
+        tlbfgs._build_solver = counting_build
+        try:
+            for label, (lb, ub) in variants.items():
+                solve(lb, ub)
+                torch.cuda.synchronize()
+                runs = []
+                for rep in range(BOX_RUNS):
+                    fused.two_loop.launches = 0
+                    subspace.COUNTS.clear()
+                    marks["polish_steps"] = 0
+                    evals[0] = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = solve(lb, ub)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    launches = fused.two_loop.launches
+                    t1, box_evals = marks["polish_start"]
+                    box = marks["box"]
+                    iters = int(box.niter.max())
+                    steps = marks["polish_steps"]
+                    counts = dict(subspace.COUNTS)
+                    lock = counts.get("lockstep", 0)
+                    calls = max(counts.get("calls", 0), 1)
+                    inst_iters = float(counts.get("instance_iterations", 0))
+                    runs.append((t1 - t0, t2 - t1, t2 - t0))
+                    err0 = (box.x.double() - xstar_box).abs().max(1).values
+                    err = (res.x.double() - xstar_box).abs().max(1).values
+                    _log(f"   {label} run {rep}: box solve {t1 - t0:.3f} s, "
+                         f"polish {t2 - t1:.3f} s, total {t2 - t0:.3f} s = "
+                         f"{BOX_BATCH / (t2 - t0):.1f} box solves/s; box "
+                         f"iterations {iters}; batched evaluations per "
+                         f"iteration {(box_evals - 1) / iters:.2f}; BOXCQP "
+                         f"lockstep iterations per call {lock / calls:.2f} "
+                         f"(instances' mean {inst_iters / max(counts.get('instances', 1), 1):.3f}), "
+                         f"exit-test syncs {counts.get('syncs', 0)} in "
+                         f"{calls} calls; polish L-BFGS steps {steps}; "
+                         f"two-loop launches {launches} (expected: one per "
+                         f"polish step, {steps}); frac_within_1e-4 before "
+                         f"the polish {(err0 <= 1e-4).double().mean().item():.4f}"
+                         f", after {(err <= 1e-4).double().mean().item():.4f}")
+                    if launches != steps:
+                        raise AssertionError(f"{label}: launches {launches} "
+                                             f"!= polish steps {steps}")
+                    if not torch.isfinite(res.x).all():
+                        raise AssertionError(f"{label}: non-finite x")
+                med = np.median(np.asarray(runs), axis=0)
+                box_state[label] = dict(res=res, box=box, launches=launches,
+                                        steps=steps, seconds=med)
+                _log(f"   {label}: B={BOX_BATCH} n={BOX_N} f32 prefix GCP, "
+                     f"{BOX_POLISH_ITERS} polish iterations: median seconds "
+                     f"box {med[0]:.3f}, polish {med[1]:.3f}, total "
+                     f"{med[2]:.3f} = {BOX_BATCH / med[2]:.1f} box solves/s")
+        finally:
+            lbatch.polish_solve_b = polish_b
+            tlbfgs._build_solver = build
+        res = box_state["bench"]["res"]
+        err = (res.x.double() - xstar_box).abs().max(1).values
+        fx_ok = bool((res.fx.double() <= 5.0 + 1e-3).all())
+        miss = torch.nonzero(err > 1e-4).flatten().tolist()
+        _log(f"   bench box recipe: frac_within_1e-4 of tile([2, 4]) = "
+             f"{(err <= 1e-4).double().mean().item():.4f}, worst "
+             f"{err.max().item():.3e}; every fx <= 5 + 1e-3: {fx_ok}; "
+             f"instances beyond: {miss[:20] or 'none'}")
+        if miss or not fx_ok:
+            raise AssertionError(f"box recipe: {len(miss)} instances beyond "
+                                 f"1e-4, fx gate {fx_ok}")
+        free = box_state["free x[2]"]
+        pinned = torch.ones(BOX_N, dtype=torch.bool, device=dev)
+        pinned[2:4] = False
+        perr = (free["res"].x.double() - xstar_box)[:, pinned].abs().max()
+        _log(f"   free x[2]: pinned pairs within {perr.item():.3e} of (2, 4);"
+             f" polish steps {free['steps']}")
+        if free["steps"] < 1 or perr.item() > 1e-4:
+            raise AssertionError("free x[2]: the polish took no step, or a "
+                                 "pinned pair is off its bounds")
+
+    smoke.phase("the box-constrained path at full width", box_path)
+
+    # 12 --------------------------------------------------------------
+    def box_kernel():
+        """The kernel against its plain version on the box polish's own
+        calls (B=4096, m=6, n=20 pair space, sweeps), f32 and f64, and
+        its time there."""
+        from lbfgspp_tpu_torch import lbfgs as tlbfgs
+        lb, ub = (torch.full((BOX_N,), v, device=dev) for v in (2.0, 4.0))
+        lb[2], ub[2] = -float("inf"), float("inf")
+        calls = capture_calls(lambda: lt.minimize_b_batched(
+            objectives.rosenbrock, bx0s, lb, ub, bparams, gcp="prefix",
+            polish_iters=BOX_POLISH_ITERS, device=dev))
+        worst = []
+        for dtype in (torch.float32, torch.float64):
+            for args in calls:
+                args = cast_args(args, dtype)
+                got = fused.two_loop(*args, -1.0, "sweeps")
+                want = fused.two_loop_plain(*args, -1.0, "sweeps")
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                ok = err <= tolerances[dtype] * scale
+                if not ok:
+                    worst.append((str(dtype), err, scale))
+            _log(f"   box shape B={args[0].shape[0]} m={args[0].shape[1]} "
+                 f"n={args[0].shape[2]} {str(dtype)[6:]} sweeps, "
+                 f"{len(calls)} calls of the polish: last max_abs_err "
+                 f"{err:.3e} (scale {scale:.3e}) "
+                 f"{'ok' if not worst else 'TOO LARGE'}")
+            if dtype == torch.float32:
+                smoke.kernel_rows["box_max_abs_err"] = err
+        if worst:
+            raise AssertionError(f"kernel disagrees with plain: {worst}")
+        args = calls[0]
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        k_ms = median_ms_of(torch, lambda: fused.two_loop(*args, -1.0,
+                                                          "sweeps"), flush)
+        p_ms = median_ms_of(torch, lambda: fused.two_loop_plain(
+            *args, -1.0, "sweeps"), flush)
+        batch, m, n2 = args[0].shape
+        nbytes = sum(t.numel() * t.element_size() for t in args
+                     if t is not None and t is not args[8]) + \
+            args[9].numel() * args[9].element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = two_loop_flops(batch, m, n2, "sweeps") / \
+            PEAK_FLOPS["float32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        _log(f"   two_loop sweeps B={batch} m={m} n={n2} float32 (box "
+             f"shape): kernel {k_ms:.4f} ms ({bound / k_ms:.1%} of bound); "
+             f"plain {p_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+             f"({nbytes / 1e6:.2f} MB; operations {t_ops:.5f} ms)")
+        smoke.kernel_rows.update(box_shape_ms=k_ms, box_shape_plain_ms=p_ms,
+                                 box_shape_bound_ms=bound,
+                                 box_shape_bound_by=by)
+
+    if "free x[2]" in box_state:
+        smoke.phase("kernel vs plain version at the box polish's shape",
+                    box_kernel)
+    else:
+        smoke.failures.append("box-shape kernel check (the box path failed)")
+
+    # 13 --------------------------------------------------------------
+    def profile_box():
+        from torch.profiler import ProfilerActivity
+        from lbfgspp_tpu_torch.ops import subspace
+        lb, ub = (torch.full((BOX_N,), v, device=dev) for v in (2.0, 4.0))
+        s = lt.solver_b(objectives.rosenbrock, lb, ub, bparams, gcp="prefix",
+                        device=dev)
+        state = s.init(bx0s)
+        torch.cuda.synchronize()
+        subspace.COUNTS.clear()
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_BOX_ITERS):
+                state = s.step(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        it = PROFILE_BOX_ITERS
+        events = prof.key_averages()
+        ops = sum(e.count for e in events if e.key.startswith("aten::"))
+        kernels = [e for e in events if e.device_type.name == "CUDA"]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        syncs = sum(e.count for e in events
+                    if e.key == "aten::_local_scalar_dense")
+        _log(f"   box iterations 1-{it} at B={BOX_BATCH}, profiler on: host "
+             f"{wall / it * 1e3:.3f} ms/iteration, {ops / it:.1f} aten ops "
+             f"and {sum(e.count for e in kernels) / it:.1f} kernel launches "
+             f"per iteration, {syncs / it:.1f} device-to-host reads per "
+             f"iteration (BOXCQP exit tests "
+             f"{subspace.COUNTS.get('syncs', 0) / it:.2f}); device busy "
+             f"{busy_ms / it:.3f} ms/iteration, idle share "
+             f"{1 - busy_ms / 1e3 / wall:.3f}; instances done "
+             f"{int(state.done.sum())}/{BOX_BATCH}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+            _log(f"   {e.self_device_time_total / it / 1e3:8.4f} ms "
+                 f"{e.count / it:7.1f}x  {e.key[:80]}")
+
+    smoke.phase("where the box path's time goes", profile_box)
+
     if smoke.failures:
         _log("FAILED: " + ", ".join(smoke.failures))
         return 1
@@ -948,9 +1235,14 @@ def main() -> int:
         "simple_ms": rows["simple_ms"],
         "pair_max_abs_err": rows["pair_max_abs_err"],
     }
-    for label in ("polish", "deep"):
+    for label in ("polish", "deep", "box"):
         for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
             kernel[f"{label}_shape_{key}"] = rows[f"{label}_shape_{key}"]
+    kernel["box_max_abs_err"] = rows["box_max_abs_err"]
+    # the box path's launches: the bench recipe's polish takes no L-BFGS
+    # step (every coordinate pinned), the free-x[2] variant's takes some
+    kernel["box_path_launches"] = box_state["bench"]["launches"]
+    kernel["box_free_path_launches"] = box_state["free x[2]"]["launches"]
     print(card_line())
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

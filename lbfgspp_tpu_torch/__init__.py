@@ -1,8 +1,10 @@
 """lbfgspp_tpu_torch: the PyTorch/CUDA port of lbfgspp_tpu.
 
-A second package beside the JAX one, for an NVIDIA H100.  Solver states are
-batch-explicit (a leading batch axis; a single solve is a batch of one), and
-the two-loop direction of a batched solve runs in a hand-written CUDA kernel
+A second package beside the JAX one, for an NVIDIA H100: L-BFGS and the
+box-constrained L-BFGS-B, batched, with their df64 polish phases.  Solver
+states are batch-explicit (a leading batch axis; a single solve is a batch
+of one), and the two-loop direction of a batched solve runs in a
+hand-written CUDA kernel
 (``csrc/two_loop.cu``), built with nvcc on first use.  Entry points run on
 the CUDA card unless the caller passes ``device="cpu"``.
 """
@@ -14,8 +16,12 @@ from .params import (LBFGSParams, LBFGSBParams,
                      LINESEARCH_BACKTRACKING_STRONG_WOLFE)
 from .types import (Status, SolveResult, LineSearchResult, SUCCESS_STATUSES,
                     make_fun_and_grad)
-from .lbfgs import minimize, solver, Solver, LBFGSState
-from .batch import minimize_batched
+from .lbfgs import (minimize, solver, Solver, LBFGSState,
+                    final_approx_hessian, final_approx_inverse_hessian)
+from .lbfgsb import LBFGSBState
+from .lbfgsb import minimize as minimize_b
+from .lbfgsb import solver as solver_b
+from .batch import minimize_batched, minimize_b_batched, best_result
 from .df64 import minimize_df64
 
 __all__ = [
@@ -25,5 +31,8 @@ __all__ = [
     "Status", "SolveResult", "LineSearchResult", "SUCCESS_STATUSES",
     "make_fun_and_grad",
     "minimize", "solver", "Solver", "LBFGSState",
-    "minimize_batched", "minimize_df64",
+    "final_approx_hessian", "final_approx_inverse_hessian",
+    "minimize_b", "solver_b", "LBFGSBState",
+    "minimize_batched", "minimize_b_batched", "best_result",
+    "minimize_df64",
 ]

@@ -4,7 +4,9 @@ The port's counterpart of ``lbfgspp_tpu.batch``: ``minimize_batched``
 (batch.py:552-742) with its main phase, straggler compaction
 (``_compact_refine``), the warm or cold df64 pair-space polish
 (:func:`polish_solve`) and the straggler-targeted deep stage
-(:func:`deep_polish`).  The JAX package maps one instance's polish over
+(:func:`deep_polish`); the box-constrained ``minimize_b_batched``
+(batch.py:772-877) with its active-set df64 polish
+(:func:`polish_solve_b`); and :func:`best_result`.  The JAX package maps one instance's polish over
 the batch with ``vmap``; here every phase runs the batch at once, so a
 polish is one batched solve in pair space ``[B, 2n]``.  The multi-device
 ``mesh`` option is a later slice of the port and raises
@@ -19,11 +21,11 @@ from typing import Callable, Optional
 
 import torch
 
-from . import lbfgs
+from . import lbfgs, lbfgsb
 from .ops import history as hist_ops
-from .params import LBFGSParams
-from .types import (SolveResult, Status, resolve_device, tree_map,
-                    tree_select)
+from .params import LBFGSBParams, LBFGSParams
+from .types import (SUCCESS_STATUSES, SolveResult, Status, make_fun_and_grad,
+                    resolve_device, tree_map, tree_select)
 from .utils import doublefloat as dfl
 
 Tensor = torch.Tensor
@@ -139,6 +141,22 @@ def polish_solve(fun: Optional[Callable], x0, params: LBFGSParams,
         ref = dfl.df64_value(fun, fun_and_grad)(x0)
     fg2 = dfl.df64_pair_fun_and_grad(
         fun, fun_and_grad, shift=None if ref is None else tuple(ref))
+    res = _polish_pairs(fg2, x0, params, iters, line_search=line_search,
+                        drive=drive, direction=direction,
+                        warm_history=warm_history, on_ls_fail=on_ls_fail,
+                        device=device)
+    if ref is not None:
+        res = res._replace(fx=(res.fx + ref.lo) + ref.hi, nfev=res.nfev + 1)
+    return lbfgs.unbatch(res) if single else res
+
+
+def _polish_pairs(fg2, x0: Tensor, params: LBFGSParams, iters: int, *,
+                  line_search: str, drive: str, direction: str,
+                  warm_history: Optional[hist_ops.LBFGSHistory],
+                  on_ls_fail: str, device) -> SolveResult:
+    """Up to ``iters`` L-BFGS iterations on the pair oracle ``fg2`` from
+    ``[x0; 0]``, collapsed back to ``x0``'s dtype (the history is an empty
+    [B, m, n] one)."""
     s = lbfgs._build_solver(
         fg2, dataclasses.replace(params, max_iterations=iters),
         line_search=line_search, direction=direction,
@@ -152,17 +170,12 @@ def polish_solve(fun: Optional[Callable], x0, params: LBFGSParams,
     st = s.run_fixed(st, iters) if drive == "fixed" else s.run(st)
     res2 = s.finalize(st)
     grad = res2.grad[:, :n].contiguous()
-    fx, nfev = res2.fx, res2.nfev
-    if ref is not None:
-        fx = (fx + ref.lo) + ref.hi
-        nfev = nfev + 1
-    res = SolveResult(
-        x=dfl.pair_to_float(res2.x), fx=fx, grad=grad,
+    return SolveResult(
+        x=dfl.pair_to_float(res2.x), fx=res2.fx, grad=grad,
         gnorm=torch.linalg.vector_norm(grad, dim=-1), niter=res2.niter,
-        nfev=nfev, status=res2.status,
+        nfev=res2.nfev, status=res2.status,
         history=hist_ops.init_history(batch, n, params.m, x0.dtype,
                                       device=device))
-    return lbfgs.unbatch(res) if single else res
 
 
 def _select_stragglers(res: SolveResult, k_deep: int, direction: str,
@@ -353,4 +366,166 @@ def minimize_batched(fun: Optional[Callable] = None,
                           direction=direction, selection=deep_selection,
                           shift=polish_shift, on_ls_fail=polish_on_ls_fail,
                           restarts=polish_restarts)
+    return res
+
+
+def polish_solve_b(fun: Optional[Callable], x0, lb, ub,
+                   params: LBFGSParams, iters: int, *,
+                   fun_and_grad=None,
+                   active_tol: float = 1e-3,
+                   line_search: str = "morethuente",
+                   direction: str = "sweeps",
+                   prior: Optional[SolveResult] = None,
+                   device=None) -> SolveResult:
+    """The active-set df64 polish of box-constrained f32 solutions ``x0
+    [B, n]`` (or one ``[n]``) (lbfgspp_tpu/batch.py:240-341).
+
+    An f32 box solve stops at the f32 objective plateau, where the
+    past/delta test fires with coordinates still ~1e-4 off their bounds.
+    Per instance: coordinates within ``active_tol`` of a bound whose
+    gradient pushes outward (KKT-consistent) are pinned exactly to it; the
+    free ones are refined by up to ``iters`` iterations of the pair-space
+    polish of the pinned objective, shifted by its df64 value at the
+    pinned start (the active coordinates' pair gradient is zero, so they
+    stay); the result is projected into the box and kept only where the
+    shifted df64 objective did not grow, else the start is kept.
+
+    ``prior``: the box solve whose ``x`` this polishes; then ``niter`` and
+    ``nfev`` are cumulative and its ``status`` and ``history`` stay.
+    ``nfev`` adds five evaluations to the polish's own: the value and
+    gradient at ``x0``, the df64 value at the pinned start, the two
+    shifted df64 values of the acceptance test and the value and gradient
+    at the result.
+    """
+    device = resolve_device(device)
+    single = torch.as_tensor(x0).dim() == 1
+    x0 = lbfgs.as_batch(x0, device)
+    lb = torch.as_tensor(lb, dtype=x0.dtype, device=device).expand_as(x0)
+    ub = torch.as_tensor(ub, dtype=x0.dtype, device=device).expand_as(x0)
+    fg = make_fun_and_grad(fun, fun_and_grad)
+    fx0, g0 = fg(x0)
+    act_lo = (x0 - lb <= active_tol) & (g0 >= 0.0)
+    act_hi = (ub - x0 <= active_tol) & (g0 <= 0.0) & (~act_lo)
+    active = act_lo | act_hi
+    xpin = torch.where(act_lo, lb, torch.where(act_hi, ub, x0))
+
+    # The df64 value at the pinned start, subtracted inside the pair
+    # arithmetic: the refinement's decrease (~1e-5) would vanish in the f32
+    # rounding of a large objective value.
+    value = dfl.df64_value(fun, fun_and_grad)
+    ref = value(xpin)
+    chi, clo = ref.hi, ref.lo
+    fg2 = dfl.df64_pair_fun_and_grad(fun, fun_and_grad, shift=(chi, clo),
+                                     pin=(active, xpin))
+    pol = _polish_pairs(fg2, xpin, params, iters, line_search=line_search,
+                        drive="while", direction=direction,
+                        warm_history=None, on_ls_fail="stop", device=device)
+    xp = lbfgsb.force_bounds(pol.x, lb, ub)
+    fxp, gp = fg(xp)
+
+    def shifted(z):
+        return dfl.to_float(dfl.sub(dfl.sub(value(z), dfl.lift(chi)),
+                                    dfl.lift(clo)))
+
+    # Accept at df64 resolution too: the gain is below an f32 ulp of fx.
+    better = shifted(xp) <= shifted(x0)
+    x = torch.where(better[:, None], xp, x0)
+    fx = torch.where(better, fxp, fx0)
+    grad = torch.where(better[:, None], gp, g0)
+    res = SolveResult(
+        x=x, fx=fx, grad=grad, gnorm=lbfgsb.proj_grad_norm(x, grad, lb, ub),
+        niter=pol.niter, nfev=pol.nfev + 5, status=pol.status,
+        history=pol.history)
+    if prior is not None:
+        if single:
+            prior = tree_map(lambda t: t[None], prior)
+        res = res._replace(niter=prior.niter + pol.niter,
+                           nfev=prior.nfev + pol.nfev + 5,
+                           status=prior.status, history=prior.history)
+    return lbfgs.unbatch(res) if single else res
+
+
+def best_result(results: SolveResult,
+                prefer_success: bool = True) -> SolveResult:
+    """The best instance of a batched result, without the batch axis
+    (lbfgspp_tpu/batch.py:745-769): the lowest ``fx``; with
+    ``prefer_success`` an instance whose status is a success outranks
+    every failed one.  A NaN ``fx`` always loses; in a batch of failures
+    only, the lowest ``fx`` wins."""
+    fx = results.fx
+    bad = torch.isnan(fx)
+    if prefer_success:
+        ok = torch.isin(results.status,
+                        torch.tensor([int(s) for s in SUCCESS_STATUSES],
+                                     dtype=results.status.dtype,
+                                     device=fx.device))
+        bad = bad | ~ok
+    keyed = torch.where(bad, float("inf"), fx)
+    keyed = torch.where(bad.all(),
+                        torch.where(torch.isnan(fx), float("inf"), fx),
+                        keyed)
+    i = torch.argmin(keyed)
+    return tree_map(lambda a: a[i], results)
+
+
+def minimize_b_batched(fun: Optional[Callable] = None,
+                       x0s=None,
+                       lb=None,
+                       ub=None,
+                       params: LBFGSBParams = LBFGSBParams(),
+                       *,
+                       fun_and_grad=None,
+                       line_search: str = "morethuente",
+                       mesh=None,
+                       gcp: str = "auto",
+                       unroll_subspace: bool = False,
+                       drive: str = "while",
+                       middle_solve=None,
+                       polish_iters: int = 0,
+                       polish_active_tol: float = 1e-3,
+                       device=None) -> SolveResult:
+    """Box-constrained solves from a batch of starts ``x0s [B, n]``; ``lb``
+    and ``ub`` are shared ``[n]`` or per-instance ``[B, n]``
+    (lbfgspp_tpu/batch.py:772-877).
+
+    ``gcp="auto"`` takes the prefix-sum Cauchy point for n <= 2048 and the
+    reference-order walk above; ``"scan"``, ``"prefix"`` or
+    ``"prefix_sorted"`` force one.  ``unroll_subspace`` and
+    ``middle_solve`` as in :func:`.lbfgsb.solver`; ``drive="fixed"`` runs
+    exactly ``params.max_iterations`` steps.
+
+    ``polish_iters > 0`` appends the active-set df64 polish
+    (:func:`polish_solve_b`, ``polish_active_tol`` its activity
+    tolerance) with ``LBFGSParams(epsilon=min(params.epsilon, 1e-7),
+    max_iterations=max(params.max_iterations, 60), m=params.m)``; the
+    result's counters are then cumulative and the box solve's status and
+    history stay."""
+    if mesh is not None:
+        raise NotImplementedError("minimize_b_batched(mesh=...) lands in a "
+                                  "later slice of the port")
+    if drive not in ("while", "fixed"):
+        raise ValueError(f"drive must be 'while' or 'fixed', got {drive!r}")
+    if drive == "fixed" and params.max_iterations == 0:
+        raise ValueError("drive='fixed' requires a finite "
+                         "params.max_iterations (the trip count)")
+    device = resolve_device(device)
+    x0s = lbfgs.as_batch(x0s, device)
+    if gcp == "auto":
+        gcp = "prefix" if x0s.shape[-1] <= 2048 else "scan"
+    s = lbfgsb.solver(fun, lb, ub, params, fun_and_grad=fun_and_grad,
+                      line_search=line_search, gcp=gcp,
+                      unroll_subspace=unroll_subspace,
+                      middle_solve=middle_solve, device=device)
+    state = s.init(x0s)
+    state = (s.run_fixed(state, params.max_iterations)
+             if drive == "fixed" else s.run(state))
+    res = s.finalize(state)
+    if polish_iters:
+        pparams = LBFGSParams(epsilon=min(params.epsilon, 1e-7),
+                              max_iterations=max(params.max_iterations, 60),
+                              m=params.m)
+        res = polish_solve_b(fun, res.x, lb, ub, pparams, polish_iters,
+                             fun_and_grad=fun_and_grad,
+                             active_tol=polish_active_tol, prior=res,
+                             device=device)
     return res

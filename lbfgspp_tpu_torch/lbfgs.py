@@ -308,3 +308,24 @@ def minimize(fun: Optional[Callable] = None,
     single = torch.as_tensor(x0).dim() == 1
     res = s.finalize(s.run(s.init(x0)))
     return unbatch(res) if single else res
+
+
+def _dense(hist, fn):
+    """``fn`` of a batched history, or of one without the batch axis (the
+    result of a solve from a 1-D ``x0``), with the same axes back."""
+    if hist.s.dim() == 2:
+        return fn(tree_map(lambda t: t[None], hist))[0]
+    return fn(hist)
+
+
+def final_approx_hessian(result: SolveResult) -> Tensor:
+    """Dense approximate Hessian at the final iterate, ``[B, n, n]`` or
+    ``[n, n]`` (``final_approx_hessian``, LBFGS.h:192;
+    lbfgspp_tpu/lbfgs.py:359-362)."""
+    return _dense(result.history, hist_ops.bmat)
+
+
+def final_approx_inverse_hessian(result: SolveResult) -> Tensor:
+    """Dense approximate inverse Hessian at the final iterate (``final_
+    approx_inverse_hessian``, LBFGS.h:197; lbfgspp_tpu/lbfgs.py:365-368)."""
+    return _dense(result.history, hist_ops.hmat)

@@ -323,7 +323,13 @@ def _layout_plan(batch, m, n, dtype, num_sms, warps, stages, staged,
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("two_loop", ["two_loop.cu"])
+    return typed(cuda_build.load("two_loop", ["two_loop.cu"]))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a two-loop library's C
+    entry points (this checkout's, or another build of the same
+    interface, as ``tools/two_loop_study.py --part ab`` loads)."""
     if not getattr(lib, "_typed", False):
         common = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
             [ctypes.c_double, ctypes.c_int]
@@ -434,10 +440,11 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def _launch(plan: LaunchPlan, s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v,
-            a, mode) -> Tensor:
+            a, mode, lib=None) -> Tensor:
     """Launch the kernel on checked tensors with ``plan``; counts
-    nothing."""
-    lib = _library()
+    nothing.  ``lib``: another build of the kernel (default: this
+    checkout's)."""
+    lib = _library() if lib is None else lib
     out = torch.empty_like(v)
     f64 = v.dtype == torch.float64
     fn = lib.lbfgs_two_loop_f64 if f64 else lib.lbfgs_two_loop_f32

@@ -255,3 +255,78 @@ def rinv_from_grams(hist: LBFGSHistory) -> Tensor:
         b = b @ b
     rinv = acc / ys_safe[:, None, :]
     return torch.where(pair_valid, rinv, 0.0)
+
+
+def _w_matrices(hist: LBFGSHistory):
+    """``(Y_age, S_age [B, m, n], valid [B, m])``: the rows in oldest-to-
+    newest order (BFGSMat.h:166-172), zero past each instance's fill
+    level (lbfgspp_tpu/ops/history.py:487-505)."""
+    m = hist.m
+    i = torch.arange(m, device=hist.s.device)
+    idx = (hist.ptr[:, None] - hist.ncorr[:, None] + i) % m
+    valid = i[None, :] < hist.ncorr[:, None]
+    rows = idx.long()[:, :, None].expand(-1, -1, hist.s.shape[2])
+    y_age = torch.where(valid[:, :, None], hist.y.gather(1, rows), 0.0)
+    s_age = torch.where(valid[:, :, None], hist.s.gather(1, rows), 0.0)
+    return y_age, s_age, valid
+
+
+def _blocks(tl: Tensor, tr: Tensor, bl: Tensor, br: Tensor) -> Tensor:
+    """``[[tl, tr], [bl, br]]`` of batched blocks."""
+    return torch.cat([torch.cat([tl, tr], dim=2), torch.cat([bl, br], dim=2)],
+                     dim=1)
+
+
+def bmat(hist: LBFGSHistory) -> Tensor:
+    """Dense ``B = theta*I - W Minv^{-1} W'`` with ``W = [Y, theta*S]``,
+    ``[B, n, n]`` (BFGSMat::get_Bmat, BFGSMat.h:150-208;
+    lbfgspp_tpu/ops/history.py:508-536).  Unused slots add zero columns to
+    W and identity rows and columns to ``Minv``, so the result is exact at
+    any fill level."""
+    _full_precision()
+    m = hist.m
+    n = hist.s.shape[2]
+    dtype, dev = hist.s.dtype, hist.s.device
+    y_age, s_age, valid = _w_matrices(hist)
+    theta = hist.theta[:, None, None]
+    sy = s_age @ y_age.transpose(1, 2)            # sy[i, j] = s_i . y_j
+    ss = s_age @ s_age.transpose(1, 2)
+    d = torch.diag_embed(torch.diagonal(sy, dim1=1, dim2=2))
+    l_mat = torch.tril(sy, diagonal=-1)
+    pair = valid[:, :, None] & valid[:, None, :]
+    minv = _blocks(-d, l_mat.transpose(1, 2), l_mat, theta * ss)
+    vmask = _blocks(pair, pair, pair, pair)
+    minv = torch.where(vmask, minv, torch.eye(2 * m, dtype=dtype, device=dev))
+    w = torch.cat([y_age, theta * s_age], dim=1)  # [B, 2m, n]
+    mid = torch.linalg.solve(minv, w)
+    return theta * torch.eye(n, dtype=dtype, device=dev) - \
+        w.transpose(1, 2) @ mid
+
+
+def hmat(hist: LBFGSHistory) -> Tensor:
+    """Dense ``H = I/theta + W M W'`` with ``W = [Y/theta, S]``,
+    ``[B, n, n]`` (BFGSMat::get_Hmat, BFGSMat.h:211-271;
+    lbfgspp_tpu/ops/history.py:539-569): the Byrd-Nocedal-Schnabel form
+    with ``M = [[0, -R^{-1}], [-R^{-T}, R^{-T}(D + Y'Y/theta)R^{-1}]]``,
+    ``R`` the age-ordered upper triangle of ``S'Y``."""
+    _full_precision()
+    m = hist.m
+    n = hist.s.shape[2]
+    dtype, dev = hist.s.dtype, hist.s.device
+    y_age, s_age, valid = _w_matrices(hist)
+    theta = hist.theta[:, None, None]
+    eye_m = torch.eye(m, dtype=dtype, device=dev)
+    sy = s_age @ y_age.transpose(1, 2)
+    # Unused diagonal entries are 1, so R stays invertible; their rows and
+    # columns meet zero W columns.
+    r = torch.where(valid[:, :, None] & valid[:, None, :], torch.triu(sy),
+                    eye_m)
+    rinv = torch.linalg.solve_triangular(r, eye_m.expand_as(r).contiguous(),
+                                         upper=True)
+    yy = y_age @ y_age.transpose(1, 2)
+    block = yy / theta + torch.diag_embed(torch.diagonal(sy, dim1=1, dim2=2))
+    br = rinv.transpose(1, 2) @ block @ rinv
+    mmat = _blocks(torch.zeros_like(rinv), -rinv, -rinv.transpose(1, 2), br)
+    w = torch.cat([y_age / theta, s_age], dim=1)  # [B, 2m, n]
+    return torch.eye(n, dtype=dtype, device=dev) / theta + \
+        w.transpose(1, 2) @ (mmat @ w)

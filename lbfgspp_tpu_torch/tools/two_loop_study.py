@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Two measurements of the two-loop kernel on one NVIDIA GPU.
+"""Measurements of the two-loop kernel on one NVIDIA GPU.
 
     python3 -m lbfgspp_tpu_torch.tools.two_loop_study [--part plans|quality|all]
+        [--kernels two_loop,two_loop_simple,two_loop_plain] [--seeds 0-9]
+    python3 -m lbfgspp_tpu_torch.tools.two_loop_study --part ab \
+        --other OTHER_TREE [--rounds R]
 
 ``plans``: where rows should stop being staged.  At B=4096, m=16 and a
 range of n in f32 and f64, every launch layout that fits a block (1-8
@@ -24,15 +27,34 @@ against the same function evaluated in f64 on the same inputs.  Then the
 whole three-phase path of ``chip_smoke.py`` phase 9 (the main phase, 5
 warm df64 polish iterations, the deep stage) runs from the same starts
 with the same kernel in every phase, and the instances it leaves beyond
-1e-4 are printed with their distance.
+1e-4 are printed with their distance.  ``--kernels`` and ``--seeds`` pick
+which of the three run and from which start seeds;
+``--polish-epsilon-rel`` sets the df64 phases' relative exit test (the
+recipe keeps ``LBFGSParams``' default).
 
-Both write their results to ``chiprun_out/two_loop_study.json`` and print
-the card's name and power limit.
+``ab``: this checkout's kernel against another build of it.
+``OTHER_TREE`` is the root of another checkout (a commit unpacked with
+``git archive`` into a gitignored directory); its ``two_loop.cu`` is built
+with this checkout's nvcc flags, and both libraries, which share one C
+interface, launch with the same plan on the same tensors.  Both are first
+held against the plain version at the main shape (B=4096, m=16, n=100)
+and the box polish's (m=6, n=20), f32 and f64.  Then every 8th call of the
+main phase of ``chip_smoke.py`` phase 4 (also lifted to pair space,
+n=200) and random histories at the box shape give each kernel's error
+against f64, beside ``two_loop_simple``'s and the plain version's (median
+and 99th percentile over calls and instances).  Last, the two are timed
+in turns (other, this, this, other; ``--rounds`` times at the main shape
+in ``rinv`` f32, once at the other shapes), each a median of 25 launches
+with the L2 flushed before each.
+
+Every part writes its results to ``chiprun_out/two_loop_study.json`` and
+prints the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -43,7 +65,8 @@ import torch
 
 import lbfgspp_tpu_torch as lt
 from lbfgspp_tpu_torch.ops import fused, history
-from lbfgspp_tpu_torch.utils import objectives
+from lbfgspp_tpu_torch.tools.capture import capture_calls, rel_errors
+from lbfgspp_tpu_torch.utils import cuda_build, objectives
 
 BATCH, M = 4096, 16
 # Rows of n * itemsize a multiple of 16 go by bulk copy, the others by
@@ -59,6 +82,8 @@ HEAD_START_CYCLES = 200_000_000
 QUALITY_SEEDS = tuple(range(10))
 MAIN_N, MAIN_ITERS = 100, 162
 POLISH_ITERS, DEEP_ITERS, DEEP_FRAC = 5, 60, 3 / 16
+BOX_N, BOX_M = 20, 6
+KEEP_EVERY = 8
 
 
 def card_line() -> str:
@@ -184,6 +209,15 @@ def study_plans(dev):
     return rows
 
 
+def cast(args, dtype):
+    return tuple(t.to(dtype) if t is not None and t.is_floating_point()
+                 else t for t in args)
+
+
+def args_of(h, v):
+    return (h.s, h.y, h.ys, h.theta, h.ptr, h.ncorr, h.sy, h.yy, h.rinv, v)
+
+
 def tracked(kernel, errors):
     """``kernel`` with the error of each call recorded in ``errors``: per
     instance, ``max|out - ref| / max|ref|`` against the same function
@@ -191,12 +225,8 @@ def tracked(kernel, errors):
     def call(*args):
         out = kernel(*args)
         *tensors, a, mode = args
-        ref = fused.two_loop_plain(
-            *(t.double() if t is not None and t.is_floating_point() else t
-              for t in tensors), a, mode)
-        scale = ref.abs().max(dim=1).values.clamp_min(1e-300)
-        errors.append(((out.double() - ref).abs().max(dim=1).values
-                       / scale).cpu())
+        ref = fused.two_loop_plain(*cast(tensors, torch.float64), a, mode)
+        errors.append(rel_errors(out, ref))
         return out
     # fused.two_loop counts its launches on whatever fused.two_loop is
     call.launches = 0
@@ -211,23 +241,27 @@ def beyond(x, tol):
     return {int(i): float(err[i]) for i in idx}
 
 
-def study_quality(dev):
+def study_quality(dev, names=("two_loop", "two_loop_simple",
+                                  "two_loop_plain"), seeds=QUALITY_SEEDS,
+                  polish_epsilon_rel=None):
     params = lt.LBFGSParams(epsilon=1e-5, max_iterations=MAIN_ITERS, m=M,
                             max_linesearch=2)
     main = dict(direction="rinv", on_ls_fail="restart", device=dev)
     # the bench recipe's df64 phases (chip_smoke.py phase 9)
     recipe = dict(polish_iters=POLISH_ITERS, polish_warm=True,
-                  polish_params=lt.LBFGSParams(epsilon=1e-5,
-                                               max_iterations=MAIN_ITERS,
-                                               m=M),
+                  polish_params=lt.LBFGSParams(
+                      epsilon=1e-5, max_iterations=MAIN_ITERS, m=M,
+                      **({} if polish_epsilon_rel is None else
+                         {"epsilon_rel": polish_epsilon_rel})),
                   polish_line_search="morethuente", deep_frac=DEEP_FRAC,
                   deep_iters=DEEP_ITERS, **main)
-    kernels = {"two_loop": fused.two_loop,
-               "two_loop_simple": fused.two_loop_simple,
-               "two_loop_plain": fused.two_loop_plain}
+    every = {"two_loop": fused.two_loop,
+             "two_loop_simple": fused.two_loop_simple,
+             "two_loop_plain": fused.two_loop_plain}
+    kernels = {name: every[name] for name in names}
     rows = []
     try:
-        for seed in QUALITY_SEEDS:
+        for seed in seeds:
             x0s = torch.as_tensor(np.random.default_rng(seed).uniform(
                 -2.0, 2.0, (BATCH, MAIN_N)), dtype=torch.float32,
                 device=dev)
@@ -264,7 +298,7 @@ def study_quality(dev):
                       f"{rows[-1]['rel_err_max']:.3e}; after the df64 polish "
                       f"and deep stage {len(full)} beyond 1e-4 "
                       f"{full or ''}", flush=True)
-            a = misses["two_loop"]
+            a = misses.get("two_loop", set())
             for label in list(kernels)[1:]:
                 b = misses[label]
                 print(f"   seed {seed}: two_loop and {label} share "
@@ -274,22 +308,151 @@ def study_quality(dev):
             total = sum(len(r["misses_1e4"]) for r in mine)
             left = sum(len(r["full_path_misses_1e4"]) for r in mine)
             print(f"   all seeds, {label}: {total} misses of "
-                  f"{BATCH * len(QUALITY_SEEDS)} at 1e-4 after the main "
+                  f"{BATCH * len(seeds)} at 1e-4 after the main "
                   f"phase, {left} after the full path; error against f64 "
                   f"median of medians "
                   f"{np.median([r['rel_err_median'] for r in mine]):.3e}, "
                   f"worst p99 {max(r['rel_err_p99'] for r in mine):.3e}",
                   flush=True)
     finally:
-        fused.two_loop = kernels["two_loop"]
+        fused.two_loop = every["two_loop"]
     return rows
+
+
+def build_other(tree: str) -> ctypes.CDLL:
+    """Another checkout's kernel, built into that checkout's own build
+    directory."""
+    src = os.path.join(tree, "lbfgspp_tpu_torch", "csrc", "two_loop.cu")
+    out_dir = os.path.join(tree, "lbfgspp_tpu_torch", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libtwo_loop_other.so")
+    proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                           lib, src], capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    return fused.typed(ctypes.CDLL(lib))
+
+
+def launcher(lib):
+    def run(*args):
+        *tensors, a, mode = args
+        return fused._launch(fused.plan_for(*tensors, mode), *tensors, a,
+                             mode, lib=lib)
+    return run
+
+
+def pair_lifted(args):
+    """A call lifted to pair space: s, y and v doubled along n with zero
+    low words, as the df64 phases' histories are."""
+    s, y, ys, th, ptr, nc, sy, yy, rinv, v = args
+    z = torch.zeros_like(s)
+    return (torch.cat([s, z], 2), torch.cat([y, z], 2), ys, th, ptr, nc, sy,
+            yy, rinv, torch.cat([v, v], 1).contiguous())
+
+
+def study_ab(dev, other: str, rounds: int):
+    impls = {"this": launcher(fused._library()),
+             "other": launcher(build_other(os.path.abspath(other))),
+             "two_loop_simple": fused.two_loop_simple,
+             "two_loop_plain": fused.two_loop_plain}
+    out = {"check": [], "accuracy": {}, "timing": []}
+    for label, (n, m) in (("main", (MAIN_N, M)), ("box", (BOX_N, BOX_M))):
+        h = random_history(BATCH, n, m, seed=m, device=dev)
+        v = torch.randn(BATCH, n, dtype=torch.float64, device=dev)
+        for dtype in (torch.float32, torch.float64):
+            args = cast(args_of(h, v), dtype)
+            for mode in ("rinv", "sweeps"):
+                want = fused.two_loop_plain(*args, -1.0, mode)
+                scale = want.abs().max().item()
+                for name in ("this", "other"):
+                    err = (impls[name](*args, -1.0, mode) -
+                           want).abs().max().item()
+                    ok = err <= TOLERANCE[dtype] * scale
+                    out["check"].append(dict(shape=label, dtype=str(dtype),
+                                             mode=mode, kernel=name,
+                                             err=err, ok=ok))
+                    print(f"   {label} {str(dtype)[6:]} {mode:6s} {name:5s}: "
+                          f"max_abs_err {err:.3e} (scale {scale:.3e}) "
+                          f"{'ok' if ok else 'TOO LARGE'}", flush=True)
+
+    x0s = torch.as_tensor(np.random.default_rng(0).uniform(
+        -2.0, 2.0, (BATCH, MAIN_N)), dtype=torch.float32, device=dev)
+    params = lt.LBFGSParams(epsilon=1e-5, max_iterations=MAIN_ITERS, m=M,
+                            max_linesearch=2)
+    result = []
+    main_calls = capture_calls(lambda: result.append(lt.minimize_batched(
+        objectives.rosenbrock, x0s, params, direction="rinv",
+        on_ls_fail="restart", device=dev)), every=KEEP_EVERY)
+    box_calls = [cast(args_of(random_history(BATCH, BOX_N, BOX_M, 100 + k,
+                                             dev),
+                              torch.randn(BATCH, BOX_N, dtype=torch.float64,
+                                          device=dev)), torch.float32)
+                 for k in range(4)]
+    sets = {"main rinv": (main_calls, "rinv"),
+            "pair rinv": ([pair_lifted(c) for c in main_calls[::2]], "rinv"),
+            "box sweeps": (box_calls, "sweeps")}
+    for label, (calls, mode) in sets.items():
+        errs = {name: [] for name in impls}
+        for args in calls:
+            ref = fused.two_loop_plain(*cast(args, torch.float64), -1.0,
+                                       mode)
+            for name, fn in impls.items():
+                errs[name].append(rel_errors(fn(*args, -1.0, mode), ref))
+        row = {}
+        for name, e in errs.items():
+            e = torch.cat(e)
+            row[name] = dict(median=e.median().item(),
+                             p99=e.quantile(0.99).item(), max=e.max().item())
+        out["accuracy"][label] = row
+        print(f"   error against f64, {label} ({len(calls)} calls x "
+              f"{BATCH} instances): " + "; ".join(
+                  f"{name} median {r['median']:.3e} p99 {r['p99']:.3e}"
+                  for name, r in row.items()), flush=True)
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    res = result[0]
+    main32 = args_of(res.history, res.grad.contiguous())
+    cases = [("main rinv f32", main32, "rinv", rounds),
+             ("main sweeps f32", main32, "sweeps", 1),
+             ("main rinv f64", cast(main32, torch.float64), "rinv", 1),
+             ("pair rinv f32", pair_lifted(main32), "rinv", 1),
+             ("box sweeps f32", box_calls[0], "sweeps", 1),
+             ("box sweeps f64", cast(box_calls[0], torch.float64), "sweeps",
+              1)]
+    for label, args, mode, n_rounds in cases:
+        turns = []
+        for _ in range(n_rounds):
+            for name in ("other", "this", "this", "other"):
+                turns.append((name, median_ms(
+                    lambda: impls[name](*args, -1.0, mode), flush)))
+        this = float(np.median([ms for k, ms in turns if k == "this"]))
+        that = float(np.median([ms for k, ms in turns if k == "other"]))
+        out["timing"].append(dict(case=label, turns=turns, this_median=this,
+                                  other_median=that))
+        print(f"   {label}: this {this:.4f} ms, other {that:.4f} ms, ratio "
+              f"{this / that:.3f}; turns "
+              + " ".join(f"{k[0]}{ms:.4f}" for k, ms in turns), flush=True)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=("plans", "quality", "all"),
+    ap.add_argument("--kernels", default="two_loop,two_loop_simple,"
+                    "two_loop_plain", help="quality: the kernels to compare")
+    ap.add_argument("--seeds", default="0-9",
+                    help="quality: the start seeds, as FIRST-LAST")
+    ap.add_argument("--polish-epsilon-rel", type=float, default=None,
+                    help="quality: the df64 phases' epsilon_rel (default: "
+                    "the recipe's, LBFGSParams' default)")
+    ap.add_argument("--other", help="ab: the root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=4,
+                    help="ab: rounds of turns at the main shape")
+    ap.add_argument("--part", choices=("plans", "quality", "all", "ab"),
                     default="all")
-    part = ap.parse_args().part
+    opts = ap.parse_args()
+    part = opts.part
+    first, last = (int(v) for v in opts.seeds.split("-"))
     if not torch.cuda.is_available():
         print("two_loop_study: no CUDA device is available", file=sys.stderr)
         return 1
@@ -303,11 +466,20 @@ def main() -> int:
         out["plans"] = study_plans(dev)
     if part in ("quality", "all"):
         print("== main-phase quality by kernel and start seed", flush=True)
-        out["quality"] = study_quality(dev)
+        out["quality"] = study_quality(dev, opts.kernels.split(","),
+                                       tuple(range(first, last + 1)),
+                                       opts.polish_epsilon_rel)
+    if part == "ab":
+        if not opts.other:
+            ap.error("--part ab needs --other")
+        print("== this kernel against the other tree's", flush=True)
+        torch.manual_seed(0)
+        out["ab"] = study_ab(dev, opts.other, opts.rounds)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "two_loop_study.json"), "w") as f:
         json.dump(out, f, indent=1)
-    return 0
+    return 1 if any(not c["ok"] for c in out.get("ab", {}).get("check", ())) \
+        else 0
 
 
 if __name__ == "__main__":

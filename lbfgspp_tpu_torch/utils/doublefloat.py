@@ -775,7 +775,7 @@ def df64_fun_and_grad(fun: Callable) -> Callable:
 
 def df64_pair_fun_and_grad(fun: Callable = None,
                            fun_and_grad: Callable = None,
-                           shift=None) -> Callable:
+                           shift=None, pin=None) -> Callable:
     """Lift the per-instance ``fun`` (or ``fun_and_grad``) to the paired
     parameter space ``x2 = [hi; lo]`` of a batch, ``x2 [B, 2n]``.
 
@@ -788,6 +788,13 @@ def df64_pair_fun_and_grad(fun: Callable = None,
     ``shift``: an optional per-instance pair ``(chi [B], clo [B])``
     subtracted from the value inside the pair arithmetic, as
     ``(fx - chi) - clo`` (the shifted polish of :mod:`..batch`).
+
+    ``pin``: an optional ``(active [B, n] bool, xpin [B, n])``: the
+    objective is evaluated at ``where(active, xpin, hi + lo)`` and its
+    gradient is zero on the active coordinates, the pair evaluation of the
+    JAX package's ``fun(where(active, xpin, z))`` (the box polish,
+    lbfgspp_tpu/batch.py:292-299).  Both enter as data, outside the
+    recorded graph, which stays the unpinned objective's.
     """
     fg = make_fun_and_grad(fun, fun_and_grad)
     key = ("pair", fun, fun_and_grad)
@@ -795,11 +802,17 @@ def df64_pair_fun_and_grad(fun: Callable = None,
     def fg2(x2: Tensor):
         n = x2.shape[-1] // 2
         s, e = two_sum(x2[:, :n], x2[:, n:])
+        if pin is not None:
+            active, xpin = pin
+            s = torch.where(active, xpin, s)
+            e = torch.where(active, 0.0, e)
         gm = _traced(key, fg, [s])
         fx, g = _interpret(gm, [DF(s, e)])
         if shift is not None:
             fx = sub(sub(fx, lift(shift[0])), lift(shift[1]))
         g1 = to_float(g)
+        if pin is not None:
+            g1 = torch.where(pin[0], 0.0, g1)
         return to_float(fx), torch.cat([g1, g1], dim=-1)
 
     return fg2

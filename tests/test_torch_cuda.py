@@ -293,3 +293,39 @@ def test_batched_solve_launches_once_per_iteration(cuda, direction):
     assert fused.two_loop.launches - before == int(res.niter.max())
     assert (res.status == lt.Status.CONVERGED_GRAD).all()
     assert (res.x - 1.0).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("mode", ["sweeps", "rinv"])
+def test_kernel_matches_plain_at_the_box_shape(cuda, dtype, rtol, mode):
+    """The box polish's shape: B=4096, m=6, n=20 (pair space of n=10)."""
+    ncorrs = tuple(int(k) for k in np.random.default_rng(2).integers(
+        0, 18, 4096))
+    h = _cached_history(4096, 20, 6, ncorrs, 6)
+    h = type(h)(*(t.to(cuda, dtype) if t.is_floating_point() else t.to(cuda)
+                  for t in h))
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal((4096, 20)),
+                        dtype=dtype, device=cuda)
+    got = fused.two_loop(*_args(h, v), -1.0, mode)
+    want = fused.two_loop_plain(*_args(h, v), -1.0, mode)
+    assert (got - want).abs().max().item() <= \
+        rtol * want.abs().max().item()
+
+
+def test_box_solve_on_card_equals_cpu(cuda):
+    """The box-constrained batch solve (Rosenbrock n=10 in [2, 4], B=256,
+    f64, the prefix GCP) on the card and on the CPU: the same iterations
+    and statuses, x to 1e-10."""
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(2.0, 4.0,
+                                                          (256, 10)))
+    p = lt.LBFGSBParams(epsilon=1e-6, max_iterations=60)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        runs[dev.type] = lt.minimize_b_batched(
+            objectives.rosenbrock, x0.to(dev), torch.full((10,), 2.0),
+            torch.full((10,), 4.0), p, device=dev)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert torch.equal(card.niter.cpu(), cpu.niter)
+    assert torch.equal(card.status.cpu(), cpu.status)
+    torch.testing.assert_close(card.x.cpu(), cpu.x, rtol=1e-10, atol=1e-12)
