@@ -73,24 +73,51 @@ Phases (any failure makes the script exit 1 and print no result):
 12. the kernel against its plain version on the box polish's own calls
    (B=4096, m=6, n=20 pair space, ``sweeps``), f32 and f64, and its time
    there beside its bound;
-13. the kernel's error against the same function evaluated in f64 on the
-   same f32 inputs, per call and instance, beside ``two_loop_simple``'s
-   and the plain version's, at the main shape (every 8th call of the main
-   phase), the pair shape (the polish's calls) and the box shape (the box
-   polish's calls): the kernel's median and 99th percentile must not
-   exceed the plain version's;
-14. profile 10 box iterations (``torch.profiler``): host ms, eager ops,
+13. profile 10 box iterations (``torch.profiler``): host ms, eager ops,
    launches and device-to-host reads per iteration, device busy time and
-   idle share.
+   idle share;
+14. time the kernel at the solver families' shapes (``sweeps``, f32):
+   B=1, m=8, n=256 (the stochastic step), B=1024, m=6, n=64 (OWL-QN and
+   the implicit adjoint's preconditioner) and its pair shape n=128 (the
+   OWL-QN polish), beside the bound and the plain version's time;
+15. OWL-QN on 1024 lassos with their own data (A 128 x 64, a 6-sparse w,
+   lambda 0.01, f32; scripts/probe_families.py:31-66) through
+   ``minimize_owlqn``: (a) at full f32, (b) with ``fast_phase_epsilon``
+   (phase 1 with TF32 matmuls in the objective), (c) the df64
+   ``polish_solve_owlqn`` of (a), each a warm-up that also captures the
+   path's kernel calls (the kernel held against plain on every 7th) and
+   three timed runs.  Prints solves/s, niter, statuses, nnz, the f64 KKT
+   violation and the batched evaluations per iteration.  Launches must
+   equal the batched iterations, the interpreter takes no fallback,
+   every x is finite, (c)'s f64 full objective is within 1e-12 of (a)'s
+   or below it, its pinned zeros are exact +0.0, and the first 64 are
+   within 1e-5 of the port's f64 CPU solve;
+16. multi-batch stochastic L-BFGS on a 2^16 x 256 logistic regression
+   made on the card (batch 4096, overlap 0.25, step 0.5, m=8, 100 steps,
+   f32; scripts/probe_families.py:71-99): iterations/s, the full-data
+   loss before and after (at most 0.25 ln 2), ``nskip``, 100 launches,
+   the kernel against plain on every call, and an f64 run on the card
+   equal to the CPU's to 1e-8;
+17. implicit differentiation (tests/test_implicit.py:83-107 scaled up):
+   the d(validation loss)/d(log lambda) of 1024 ridge logistic
+   regressions (512 + 512 rows, d=64, f32) through ``loss.backward()``,
+   forward and backward seconds, CG lockstep iterations with and without
+   the preconditioner; the backward's launches must equal the CG
+   iterations + 1, every hypergradient finite, and an f64 run of the
+   first 16 within 1e-5 of central finite differences (eps 1e-5) of the
+   validation loss at Newton-refined argmins.
 
-Phase 5 also times the kernel at the pair shapes beside their bound.  The
-last lines are the card's name and power limit (nvidia-smi), a JSON
-``kernels`` line, and ``{"ok": true, "device": {...}}``.
+Phase 5 also times the kernel at the pair shapes beside their bound;
+phase 2 also checks the solver families' shapes.  The last lines are the
+card's name and power limit (nvidia-smi), a JSON ``kernels`` line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -117,6 +144,13 @@ FULL_PATH_RUNS = 3
 BOX_BATCH, BOX_N, BOX_ITERS, BOX_POLISH_ITERS = 4096, 10, 60, 4
 BOX_RUNS, PROFILE_BOX_ITERS = 3, 10
 DEVICE = "cuda"
+# The solver families (phases 14-17).
+FAMILY_RUNS = 3
+OWL_BATCH, OWL_ROWS, OWL_N, OWL_LAM, OWL_ITERS = 1024, 128, 64, 0.01, 150
+OWL_POLISH_ITERS, OWL_CHECK = 30, 64
+STOCH_ROWS, STOCH_DIM, STOCH_BATCH = 1 << 16, 256, 4096
+STOCH_M, STOCH_STEPS = 8, 100
+IMP_BATCH, IMP_ROWS, IMP_D, IMP_CHECK = 1024, 512, 64, 16
 
 
 def _log(*args):
@@ -250,6 +284,51 @@ def median_ms_of(torch, fn, flush) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
+def time_vs_bound(torch, fused, args, mode, flush) -> dict:
+    """The kernel's and the plain version's time of one two-loop call
+    (:func:`median_ms_of`) beside its bound: the larger of the bytes it
+    must move over the memory rate and its operations over the peak
+    rate."""
+    k_ms = median_ms_of(torch, lambda: fused.two_loop(*args, -1.0, mode),
+                        flush)
+    p_ms = median_ms_of(torch, lambda: fused.two_loop_plain(*args, -1.0,
+                                                            mode), flush)
+    s, v = args[0], args[9]
+    batch, m, n = s.shape
+    mats = (args[8] if mode == "rinv" else args[6], args[7])
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in args[:6] + (v,) + mats) + \
+        v.numel() * v.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = two_loop_flops(batch, m, n, mode) / \
+        PEAK_FLOPS[str(v.dtype)[6:]] * 1e3
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                mbytes=nbytes / 1e6, ops_ms=t_ops)
+
+
+def lasso_loss(x, d):
+    """One lasso instance's smooth part, ``0.5 ||A x - b||^2``."""
+    return 0.5 * ((d["A"] @ x - d["b"]) ** 2).sum()
+
+
+def logreg_loss(w, batch):
+    """Mean logistic loss of ``w`` on a batch of rows."""
+    import torch
+    logits = batch["X"] @ w
+    return torch.mean(torch.logaddexp(torch.zeros_like(logits), logits)
+                      - batch["y"] * logits)
+
+
+def ridge_loss(w, th):
+    """One ridge logistic regression (labels +-1), its weight
+    ``exp(loglam)``."""
+    import torch
+    z = th["y"] * (th["A"] @ w)
+    return torch.logaddexp(torch.zeros_like(z), -z).mean() + \
+        0.5 * torch.exp(th["loglam"]) * (w * w).sum()
+
+
 def frac_within(x, tol) -> float:
     return ((x.double() - 1.0).abs().max(dim=1).values <= tol).double() \
         .mean().item()
@@ -339,6 +418,12 @@ def main() -> int:
          np.random.default_rng(6).integers(0, 3 * MAIN_M, 300)),
         ("n=1000", 300, 1000, MAIN_M,
          np.random.default_rng(7).integers(0, 3 * MAIN_M, 300)),
+        # the solver families' shapes (phases 15-17)
+        ("stochastic", 1, STOCH_DIM, STOCH_M, (STOCH_M + 3,)),
+        ("owlqn", OWL_BATCH, OWL_N, 6,
+         np.random.default_rng(8).integers(0, 18, OWL_BATCH)),
+        ("owlqn pair", OWL_BATCH, 2 * OWL_N, 6,
+         np.random.default_rng(9).integers(0, 18, OWL_BATCH)),
     ]
 
     def compare():
@@ -562,27 +647,18 @@ def main() -> int:
         for label, batch in (("polish", MAIN_BATCH), ("deep", DEEP_BATCH)):
             h, v = pair_state(torch, lbatch, h32, v32, batch, seed=batch)
             args = kernel_args(h, v)
-            n2 = v.shape[1]
-            k_ms = median_ms(lambda: fused.two_loop(*args, -1.0, "rinv"))
-            p_ms = median_ms(lambda: fused.two_loop_plain(*args, -1.0,
-                                                          "rinv"))
-            nbytes = two_loop_bytes(h, v, "rinv")
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = two_loop_flops(batch, MAIN_M, n2, "rinv") / \
-                PEAK_FLOPS["float32"] * 1e3
-            bound = max(t_bytes, t_ops)
-            by = "bytes" if t_bytes >= t_ops else "operations"
+            row = time_vs_bound(torch, fused, args, "rinv", flush)
             plan = fused.plan_for(*args, "rinv")
-            _log(f"   two_loop rinv B={batch} m={MAIN_M} n={n2} float32 "
-                 f"({label} shape): kernel {k_ms:.4f} ms ({bound / k_ms:.1%}"
-                 f" of bound); plain {p_ms:.4f} ms; bound {bound:.4f} ms by "
-                 f"{by} ({nbytes / 1e6:.1f} MB; operations {t_ops:.4f} ms);"
-                 f" plan {plan.warps} warps x {plan.stages} stages, grid "
-                 f"{plan.grid}, staged {plan.staged}")
-            rows.update({f"{label}_shape_ms": k_ms,
-                         f"{label}_shape_plain_ms": p_ms,
-                         f"{label}_shape_bound_ms": bound,
-                         f"{label}_shape_bound_by": by})
+            _log(f"   two_loop rinv B={batch} m={MAIN_M} n={v.shape[1]} "
+                 f"float32 ({label} shape): kernel {row['ms']:.4f} ms "
+                 f"({row['bound_ms'] / row['ms']:.1%} of bound); plain "
+                 f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                 f"by {row['bound_by']} ({row['mbytes']:.1f} MB; operations "
+                 f"{row['ops_ms']:.4f} ms); plan {plan.warps} warps x "
+                 f"{plan.stages} stages, grid {plan.grid}, staged "
+                 f"{plan.staged}")
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                rows[f"{label}_shape_{key}"] = row[key]
 
     if "res" in main_state:
         smoke.phase("kernel timing at the main path's shape", timing)
@@ -1143,26 +1219,16 @@ def main() -> int:
             raise AssertionError(f"kernel disagrees with plain: {worst}")
         args = calls[0]
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-        k_ms = median_ms_of(torch, lambda: fused.two_loop(*args, -1.0,
-                                                          "sweeps"), flush)
-        p_ms = median_ms_of(torch, lambda: fused.two_loop_plain(
-            *args, -1.0, "sweeps"), flush)
+        row = time_vs_bound(torch, fused, args, "sweeps", flush)
         batch, m, n2 = args[0].shape
-        nbytes = sum(t.numel() * t.element_size() for t in args
-                     if t is not None and t is not args[8]) + \
-            args[9].numel() * args[9].element_size()
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = two_loop_flops(batch, m, n2, "sweeps") / \
-            PEAK_FLOPS["float32"] * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
+        share = row["bound_ms"] / row["ms"]
         _log(f"   two_loop sweeps B={batch} m={m} n={n2} float32 (box "
-             f"shape): kernel {k_ms:.4f} ms ({bound / k_ms:.1%} of bound); "
-             f"plain {p_ms:.4f} ms; bound {bound:.4f} ms by {by} "
-             f"({nbytes / 1e6:.2f} MB; operations {t_ops:.5f} ms)")
-        smoke.kernel_rows.update(box_shape_ms=k_ms, box_shape_plain_ms=p_ms,
-                                 box_shape_bound_ms=bound,
-                                 box_shape_bound_by=by)
+             f"shape): kernel {row['ms']:.4f} ms ({share:.1%} of bound); "
+             f"plain {row['plain_ms']:.4f} ms; "
+             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+             f"({row['mbytes']:.2f} MB; operations {row['ops_ms']:.5f} ms)")
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            smoke.kernel_rows[f"box_shape_{key}"] = row[key]
 
     if "free x[2]" in box_state:
         smoke.phase("kernel vs plain version at the box polish's shape",
@@ -1210,6 +1276,389 @@ def main() -> int:
 
     smoke.phase("where the box path's time goes", profile_box)
 
+    # 14 --------------------------------------------------------------
+    def family_kernel_times():
+        """The kernel's time at the solver families' shapes (phases
+        15-17), sweeps, f32, on random histories at the paths' fill
+        levels, beside its bound and the plain version's time."""
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        for label, batch, n, m in (("stochastic", 1, STOCH_DIM, STOCH_M),
+                                   ("owlqn", OWL_BATCH, OWL_N, 6),
+                                   ("owlqn_pair", OWL_BATCH, 2 * OWL_N, 6)):
+            ncorrs = np.random.default_rng(n).integers(m, 3 * m, batch)
+            h = cast(random_history(torch, history, batch, n, m, ncorrs,
+                                    seed=n, device=dev), torch.float32)
+            v = torch.as_tensor(np.random.default_rng(1).standard_normal(
+                (batch, n)), dtype=torch.float32, device=dev)
+            row = time_vs_bound(torch, fused, kernel_args(h, v), "sweeps",
+                                flush)
+            plan = fused.plan_for(*kernel_args(h, v), "sweeps")
+            _log(f"   two_loop sweeps B={batch} m={m} n={n} float32 "
+                 f"({label} shape): kernel {row['ms']:.4f} ms "
+                 f"({row['bound_ms'] / row['ms']:.1%} of bound); plain "
+                 f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+                 f"by {row['bound_by']} ({row['mbytes']:.3f} MB); plan "
+                 f"{plan.warps} warps x {plan.stages} stages, grid "
+                 f"{plan.grid}, staged {plan.staged}")
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                smoke.kernel_rows[f"{label}_shape_{key}"] = row[key]
+
+    smoke.phase("the kernel's time at the solver families' shapes",
+                family_kernel_times)
+
+    # 15 --------------------------------------------------------------
+    # OWL-QN on the repo's recorded lasso family (scripts/probe_families.py
+    # :31-66): every instance its own A (128 x 64, / sqrt(128)), a 6-sparse
+    # w of N(0, 9) and noise 0.02, lambda 0.01, f32, from x0 = 0.
+    owl_state = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    owl_a = torch.randn(OWL_BATCH, OWL_ROWS, OWL_N, generator=gen,
+                        device=dev) / OWL_ROWS ** 0.5
+    owl_w = torch.zeros(OWL_BATCH, OWL_N, device=dev)
+    owl_w[:, :6] = 3.0 * torch.randn(OWL_BATCH, 6, generator=gen, device=dev)
+    owl_b = (owl_a @ owl_w[:, :, None])[:, :, 0] + 0.02 * torch.randn(
+        OWL_BATCH, OWL_ROWS, generator=gen, device=dev)
+    owl_data = {"A": owl_a, "b": owl_b}
+    owl_params = lt.LBFGSParams(epsilon=1e-5, epsilon_rel=0.0,
+                                max_iterations=OWL_ITERS)
+
+    def owlqn_path():
+        from lbfgspp_tpu_torch import owlqn
+        from lbfgspp_tpu_torch.linesearch import morethuente
+        a64, b64 = owl_a.double(), owl_b.double()
+
+        def full64(x):
+            r = (a64 @ x.double()[:, :, None])[:, :, 0] - b64
+            return 0.5 * (r * r).sum(1) + OWL_LAM * x.double().abs().sum(1)
+
+        def kkt64(x):
+            x = x.double()
+            r = (a64 @ x[:, :, None])[:, :, 0] - b64
+            g = (a64.transpose(1, 2) @ r[:, :, None])[:, :, 0]
+            return owlqn.pseudo_gradient(x, g, OWL_LAM).abs().amax(1)
+
+        polish_iters = [0]
+
+        def counted_morethuente(*args, **kwargs):
+            # one search per lockstep polish iteration
+            polish_iters[0] += 1
+            return morethuente(*args, **kwargs)
+
+        def solve_a():
+            return lt.minimize_owlqn(lasso_loss, torch.zeros_like(owl_w),
+                                     OWL_LAM, owl_params, data=owl_data,
+                                     device=dev)
+
+        def solve_b():
+            return lt.minimize_owlqn(lasso_loss, torch.zeros_like(owl_w),
+                                     OWL_LAM, owl_params, data=owl_data,
+                                     fast_phase_epsilon=1e-3, device=dev)
+
+        polish_params = lt.LBFGSParams(epsilon=1e-9, epsilon_rel=0.0,
+                                       max_iterations=100)
+
+        def solve_c():
+            return lt.polish_solve_owlqn(
+                lasso_loss, owl_state["a"].x, OWL_LAM, polish_params,
+                OWL_POLISH_ITERS, data=owl_data,
+                line_search=counted_morethuente, on_ls_fail="restart",
+                restarts=2, prior=owl_state["a"], device=dev)
+
+        def timed(label, solve, iterations):
+            """Capture (the warm-up), hold the kernel against plain on
+            the captured calls, then the timed runs; ``iterations()`` is
+            the run's batched iterations, one launch each."""
+            calls = capture_calls(solve, every=7)     # also the warm-up
+            worst = 0.0
+            for args in calls:
+                got = fused.two_loop(*args, -1.0, "sweeps")
+                want = fused.two_loop_plain(*args, -1.0, "sweeps")
+                err = ((got - want).abs().max() /
+                       want.abs().max().clamp_min(1e-30)).item()
+                worst = max(worst, err)
+            shape = tuple(calls[0][0].shape) if calls else None
+            _log(f"   {label}: kernel vs plain on {len(calls)} of the "
+                 f"path's calls (every 7th, [B, m, n] = {shape}, sweeps "
+                 f"f32): worst relative error {worst:.3e}")
+            if not worst <= 1e-4:
+                raise AssertionError(f"{label}: kernel disagrees with plain")
+            secs = []
+            for _ in range(FAMILY_RUNS):
+                owlqn.COUNTS.clear()
+                dfl.FALLBACKS.clear()
+                polish_iters[0] = 0
+                fused.two_loop.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                launches = fused.two_loop.launches
+                want = iterations()
+                if launches != want:
+                    raise AssertionError(f"{label}: launches {launches} != "
+                                         f"batched iterations {want}")
+                if not torch.isfinite(res.x).all():
+                    raise AssertionError(f"{label}: non-finite x")
+                if sum(dfl.FALLBACKS.values()):
+                    raise AssertionError(f"{label}: interpreter fallbacks "
+                                         f"{dict(dfl.FALLBACKS)}")
+            kkt = kkt64(res.x)
+            q = [kkt.median().item(), kkt.quantile(0.99).item(),
+                 kkt.max().item()]
+            statuses = dict(sorted(collections.Counter(
+                res.status.tolist()).items()))
+            nnz = (res.x != 0).sum(1).double()
+            evals = owlqn.COUNTS["evaluations"]
+            _log(f"   {label}: median {np.median(secs):.3f} s of "
+                 f"{', '.join(f'{s:.3f}' for s in secs)} = "
+                 f"{OWL_BATCH / np.median(secs):.1f} solves/s; niter p50 "
+                 f"{res.niter.double().median().item():.0f} max "
+                 f"{int(res.niter.max())}; statuses {statuses}; nnz p50 "
+                 f"{nnz.median().item():.0f}; f64 KKT violation p50 "
+                 f"{q[0]:.3e} p99 {q[1]:.3e} max {q[2]:.3e}; batched "
+                 f"iterations {want}, kernel launches {launches}"
+                 + (f", batched evaluations {evals} (start points "
+                    f"included), {evals / want:.2f} per iteration"
+                    if evals else "") + "; interpreter fallbacks 0")
+            owl_state[label] = res
+            owl_state[f"{label} launches"] = launches
+            owl_state[f"{label} seconds"] = float(np.median(secs))
+            return res
+
+        res_a = timed("a", solve_a, lambda: owlqn.COUNTS["iterations"])
+        timed("b", solve_b, lambda: owlqn.COUNTS["iterations"])
+        res_c = timed("c", solve_c, lambda: polish_iters[0])
+
+        fa, fc = full64(res_a.x), full64(res_c.x)
+        worse = int((fc > fa).sum())
+        bar = fc <= fa + 1e-12
+        pinned = (res_a.x == 0) & (res_a.grad.abs() <= OWL_LAM)
+        xc = res_c.x[pinned]
+        exact = bool((xc == 0).all()) and not bool(torch.signbit(xc).any())
+        _log(f"   (c) vs (a): full L1 objective in f64 lower for "
+             f"{int((fc < fa).sum())}, equal for {int((fc == fa).sum())}, "
+             f"higher for {worse} (largest rise "
+             f"{(fc - fa).clamp_min(0).max().item():.3e}); within (a) + "
+             f"1e-12 (the bar of tests/test_polish.py:657) for "
+             f"{int(bar.sum())}/{OWL_BATCH}; {int(pinned.sum())} pinned "
+             f"zeros, all exact +0.0: {exact}")
+        if not bool(bar.all()):
+            raise AssertionError("the polish raised some full objective")
+        if not exact:
+            raise AssertionError("a pinned zero moved")
+        k = min(OWL_CHECK, OWL_BATCH)
+        ref = lt.minimize_owlqn(
+            lasso_loss, torch.zeros(k, OWL_N, dtype=torch.float64), OWL_LAM,
+            lt.LBFGSParams(epsilon=1e-10, epsilon_rel=0.0,
+                           max_iterations=400),
+            data={"A": a64[:k].cpu(), "b": b64[:k].cpu()}, device="cpu")
+        r = (a64[:k].cpu() @ ref.x[:, :, None])[:, :, 0] - b64[:k].cpu()
+        fstar = 0.5 * (r * r).sum(1) + OWL_LAM * ref.x.abs().sum(1)
+        gap = (fc[:k].cpu() - fstar).abs() / fstar.abs().clamp_min(1.0)
+        _log(f"   (c) against the port's f64 CPU solve of the first {k} "
+             f"(epsilon 1e-10, 400 iterations): |F - F*| / max(1, |F*|) "
+             f"max {gap.max().item():.3e} (limit 1e-5)")
+        if not bool((gap <= 1e-5).all()):
+            raise AssertionError("the polished objective is off the f64 "
+                                 "optimum")
+
+    smoke.phase("OWL-QN lasso at full width, its fast phase and its df64 "
+                "polish", owlqn_path)
+
+    # 16 --------------------------------------------------------------
+    # Multi-batch L-BFGS on logistic regression (scripts/probe_families.py
+    # :71-99): 2^16 rows, dim 256, data made on the card.
+    stoch_state = {}
+
+    def logreg_data(rows, dim, dtype, seed, device):
+        g = torch.Generator(device=device).manual_seed(seed)
+        w = torch.randn(dim, generator=g, device=device, dtype=dtype)
+        x = torch.randn(rows, dim, generator=g, device=device, dtype=dtype)
+        u = torch.rand(rows, generator=g, device=device, dtype=dtype)
+        return {"X": x, "y": (u < torch.sigmoid(x @ w)).to(dtype)}
+
+    def stochastic_path():
+        data = logreg_data(STOCH_ROWS, STOCH_DIM, torch.float32, 1, dev)
+        p = lt.LBFGSParams(m=STOCH_M, max_iterations=STOCH_STEPS)
+        x0 = torch.zeros(STOCH_DIM, device=dev)
+
+        def solve():
+            return lt.minimize_stochastic(
+                logreg_loss, x0, data, p, batch_size=STOCH_BATCH,
+                overlap_frac=0.25, step_size=0.5, device=dev)
+
+        calls = capture_calls(solve)                  # also the warm-up
+        worst = max(((fused.two_loop(*a, -1.0, "sweeps")
+                      - fused.two_loop_plain(*a, -1.0, "sweeps")).abs().max()
+                     / fused.two_loop_plain(*a, -1.0, "sweeps").abs().max()
+                     .clamp_min(1e-30)).item() for a in calls)
+        _log(f"   kernel vs plain on the {len(calls)} calls of a run "
+             f"([B, m, n] = {tuple(calls[0][0].shape)}, sweeps f32): worst "
+             f"relative error {worst:.3e}")
+        if not worst <= 1e-4:
+            raise AssertionError("kernel disagrees with plain")
+        secs = []
+        for _ in range(FAMILY_RUNS):
+            fused.two_loop.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = fused.two_loop.launches
+            if launches != STOCH_STEPS:
+                raise AssertionError(f"launches {launches} != "
+                                     f"{STOCH_STEPS} steps")
+        if not torch.isfinite(res.x).all():
+            raise AssertionError("non-finite x")
+        f0 = logreg_loss(x0, data).item()
+        f1 = logreg_loss(res.x, data).item()
+        _log(f"   B=1 rows={STOCH_ROWS} dim={STOCH_DIM} batch "
+             f"{STOCH_BATCH} overlap 0.25 step 0.5 m={STOCH_M} f32: median "
+             f"{np.median(secs):.3f} s of "
+             f"{', '.join(f'{s:.3f}' for s in secs)} = "
+             f"{STOCH_STEPS / np.median(secs):.1f} iterations/s; "
+             f"full-data loss {f0:.6f} -> {f1:.6f} (limit 0.25 ln 2 = "
+             f"{0.25 * math.log(2):.6f}); nskip {int(res.nskip)}; kernel "
+             f"launches {launches}")
+        stoch_state.update(launches=launches, seconds=float(np.median(secs)))
+        if not f1 <= 0.25 * math.log(2):
+            raise AssertionError("the full-data loss stayed above "
+                                 "0.25 ln 2")
+        # f64 on the card against the port's CPU run on the same data
+        small = logreg_data(1 << 12, 64, torch.float64, 2, "cpu")
+        runs = [lt.minimize_stochastic(
+            logreg_loss, torch.zeros(64, dtype=torch.float64),
+            {k: v.to(d) for k, v in small.items()},
+            lt.LBFGSParams(m=STOCH_M, max_iterations=20), batch_size=512,
+            overlap_frac=0.25, step_size=0.5, device=d).x.cpu()
+            for d in (dev, "cpu")]
+        rel = ((runs[0] - runs[1]).abs().max() /
+               runs[1].abs().max()).item()
+        _log(f"   f64, 2^12 rows x dim 64, 20 steps: card vs CPU max|dx| / "
+             f"max|x| = {rel:.3e} (limit 1e-8)")
+        if not rel <= 1e-8:
+            raise AssertionError("the card's f64 run differs from the CPU's")
+
+    smoke.phase("stochastic L-BFGS at full width", stochastic_path)
+
+    # 17 --------------------------------------------------------------
+    # Implicit differentiation: the hypergradient of tests/test_implicit.py
+    # :83-107 scaled up, B ridge logistic regressions with their own data,
+    # theta = log lambda on a grid over [-4, 0].
+    imp_state = {}
+
+    def ridge_data(batch, dtype, seed, device):
+        """Training and validation rows with labels of random sign (the
+        test's own data, per instance), and the log lambda grid."""
+        g = torch.Generator(device=device).manual_seed(seed)
+
+        def rows():
+            a = torch.randn(batch, IMP_ROWS, IMP_D, generator=g,
+                            device=device, dtype=dtype)
+            return a, torch.sign(torch.randn(batch, IMP_ROWS, generator=g,
+                                             device=device, dtype=dtype))
+        (a, y), (av, yv) = rows(), rows()
+        loglam = torch.linspace(-4.0, 0.0, batch, device=device, dtype=dtype)
+        return a, y, av, yv, loglam
+
+    def val_loss(res_x, av, yv):
+        z = yv * (av @ res_x[:, :, None])[:, :, 0]
+        return torch.logaddexp(torch.zeros_like(z), -z).mean(1)
+
+    def hypergrad(a, y, av, yv, loglam, params, precondition=True):
+        """d(validation loss)/d(log lambda) of every instance, the
+        seconds of the backward and its kernel launches."""
+        loglam = loglam.clone().requires_grad_()
+        res = lt.implicit_minimize(
+            ridge_loss, torch.zeros(a.shape[0], IMP_D, dtype=a.dtype,
+                                    device=a.device),
+            {"loglam": loglam, "A": a, "y": y}, params,
+            precondition=precondition, device=a.device)
+        torch.cuda.synchronize()
+        t1, launches = time.perf_counter(), fused.two_loop.launches
+        val_loss(res.x, av, yv).sum().backward()
+        torch.cuda.synchronize()
+        return (loglam.grad, res, time.perf_counter() - t1,
+                fused.two_loop.launches - launches)
+
+    def implicit_path():
+        from lbfgspp_tpu_torch import diff
+        a, y, av, yv, loglam = ridge_data(IMP_BATCH, torch.float32, 3, dev)
+        p32 = lt.LBFGSParams(epsilon=1e-5, epsilon_rel=0.0,
+                             max_iterations=200)
+        calls = capture_calls(                        # also the warm-up
+            lambda: hypergrad(a, y, av, yv, loglam, p32))
+        worst = max(((fused.two_loop(*c, 1.0, "sweeps")
+                      - fused.two_loop_plain(*c, 1.0, "sweeps")).abs().max()
+                     / fused.two_loop_plain(*c, 1.0, "sweeps").abs().max()
+                     .clamp_min(1e-30)).item() for c in calls)
+        _log(f"   kernel vs plain on the {len(calls)} calls of the forward "
+             f"solve and the backward's preconditioner ([B, m, n] = "
+             f"{tuple(calls[-1][0].shape)}, sweeps f32): worst relative "
+             f"error {worst:.3e}")
+        if not worst <= 1e-4:
+            raise AssertionError("kernel disagrees with plain")
+        cg = {}
+        for pre in (False, True):
+            diff.COUNTS.clear()
+            fused.two_loop.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grad, res, back, launches = hypergrad(a, y, av, yv, loglam, p32,
+                                                  pre)
+            total = time.perf_counter() - t0
+            cg[pre] = diff.COUNTS["cg_iterations"]
+            _log(f"   precondition={pre}: forward {total - back:.3f} s "
+                 f"(niter p50 {res.niter.double().median().item():.0f} max "
+                 f"{int(res.niter.max())}), backward {back:.3f} s; CG "
+                 f"lockstep iterations {cg[pre]} (an instance's mean "
+                 f"{diff.COUNTS['instance_iterations'] / IMP_BATCH:.2f}); "
+                 f"kernel launches in the backward {launches}")
+            if not torch.isfinite(grad).all():
+                raise AssertionError("a non-finite hypergradient")
+            want = cg[pre] + 1 if pre else 0
+            if launches != want:
+                raise AssertionError(f"backward launches {launches} != "
+                                     f"{want}")
+        imp_state.update(launches=launches, cg=cg[True])
+        # f64, the first 16, against central finite differences
+        k, eps = min(IMP_CHECK, IMP_BATCH), 1e-5
+        a, y, av, yv, loglam = (t[:k].double() for t in (a, y, av, yv,
+                                                         loglam))
+        p64 = lt.LBFGSParams(epsilon=1e-10, epsilon_rel=0.0,
+                             max_iterations=200)
+        grad = hypergrad(a, y, av, yv, loglam, p64)[0]
+        with torch.no_grad():
+            # The f64 solve stops at the Armijo test's rounding floor
+            # (gradient norm ~1e-8), whose noise in x is ~1e-4 of a central
+            # difference at eps 1e-5; two Newton steps on each solve (the
+            # exact 64 x 64 Hessian) put the differenced points on the
+            # argmin.
+            fd = []
+            for sign in (1.0, -1.0):
+                th = {"loglam": loglam + sign * eps, "A": a, "y": y}
+                x = lt.implicit_minimize(
+                    ridge_loss, torch.zeros(k, IMP_D, dtype=torch.float64,
+                                            device=dev), th, p64,
+                    device=dev).x
+                for _ in range(2):
+                    g = torch.func.vmap(torch.func.grad(ridge_loss))(x, th)
+                    h = torch.func.vmap(torch.func.hessian(ridge_loss))(x,
+                                                                      th)
+                    x = x - torch.linalg.solve(h, g[:, :, None])[:, :, 0]
+                fd.append(val_loss(x, av, yv))
+            fd = (fd[0] - fd[1]) / (2 * eps)
+        err = ((grad - fd).abs() / fd.abs().clamp_min(1.0)).max().item()
+        _log(f"   f64, the first {k}: |hypergradient - central difference "
+             f"(eps 1e-5, Newton-refined argmins)| / max(1, |fd|) max "
+             f"{err:.3e} (limit 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError("hypergradient off the finite differences")
+
+    smoke.phase("implicit differentiation at full width", implicit_path)
+
     if smoke.failures:
         _log("FAILED: " + ", ".join(smoke.failures))
         return 1
@@ -1243,6 +1692,16 @@ def main() -> int:
     # step (every coordinate pinned), the free-x[2] variant's takes some
     kernel["box_path_launches"] = box_state["bench"]["launches"]
     kernel["box_free_path_launches"] = box_state["free x[2]"]["launches"]
+    # the solver families: the kernel's time at their shapes (phase 14)
+    # and its launches on their paths (phases 15-17)
+    for label in ("owlqn", "owlqn_pair", "stochastic"):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            kernel[f"{label}_shape_{key}"] = rows[f"{label}_shape_{key}"]
+    kernel["owlqn_launches"] = owl_state["a launches"]
+    kernel["owlqn_fast_phase_launches"] = owl_state["b launches"]
+    kernel["owlqn_polish_launches"] = owl_state["c launches"]
+    kernel["stochastic_launches"] = stoch_state["launches"]
+    kernel["implicit_launches"] = imp_state["launches"]
     print(card_line())
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """lbfgspp_tpu_torch: the PyTorch/CUDA port of lbfgspp_tpu.
 
-A second package beside the JAX one, for an NVIDIA H100: L-BFGS and the
-box-constrained L-BFGS-B, batched, with their df64 polish phases.  Solver
+A second package beside the JAX one, for an NVIDIA H100: L-BFGS, the
+box-constrained L-BFGS-B and the L1-regularized OWL-QN, batched, with
+their df64 polish phases; multi-batch stochastic L-BFGS; implicit
+differentiation of solves; and a front end for parameter trees.  Solver
 states are batch-explicit (a leading batch axis; a single solve is a batch
 of one), and the two-loop direction of a batched solve runs in a
 hand-written CUDA kernel
@@ -21,8 +23,13 @@ from .lbfgs import (minimize, solver, Solver, LBFGSState,
 from .lbfgsb import LBFGSBState
 from .lbfgsb import minimize as minimize_b
 from .lbfgsb import solver as solver_b
-from .batch import minimize_batched, minimize_b_batched, best_result
+from .batch import (minimize_batched, minimize_b_batched, best_result,
+                    polish_solve_owlqn)
 from .df64 import minimize_df64
+from .diff import implicit_minimize
+from .owlqn import OWLQNState, minimize_owlqn, pseudo_gradient
+from .pytree import minimize_b_pytree, minimize_pytree, ravel_pytree
+from .stochastic import minimize_stochastic
 
 __all__ = [
     "LBFGSParams", "LBFGSBParams",
@@ -35,4 +42,7 @@ __all__ = [
     "minimize_b", "solver_b", "LBFGSBState",
     "minimize_batched", "minimize_b_batched", "best_result",
     "minimize_df64",
+    "minimize_owlqn", "OWLQNState", "pseudo_gradient", "polish_solve_owlqn",
+    "minimize_pytree", "minimize_b_pytree", "ravel_pytree",
+    "minimize_stochastic", "implicit_minimize",
 ]

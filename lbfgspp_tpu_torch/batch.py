@@ -6,9 +6,11 @@ The port's counterpart of ``lbfgspp_tpu.batch``: ``minimize_batched``
 (:func:`polish_solve`) and the straggler-targeted deep stage
 (:func:`deep_polish`); the box-constrained ``minimize_b_batched``
 (batch.py:772-877) with its active-set df64 polish
-(:func:`polish_solve_b`); and :func:`best_result`.  The JAX package maps one instance's polish over
-the batch with ``vmap``; here every phase runs the batch at once, so a
-polish is one batched solve in pair space ``[B, 2n]``.  The multi-device
+(:func:`polish_solve_b`); the active-orthant df64 polish of OWL-QN
+solutions (:func:`polish_solve_owlqn`); and :func:`best_result`.  The
+JAX package maps one instance's polish over the batch with ``vmap``;
+here every phase runs the batch at once, so a polish is one batched
+solve in pair space ``[B, 2n]``.  The multi-device
 ``mesh`` option is a later slice of the port and raises
 ``NotImplementedError``.
 """
@@ -16,16 +18,19 @@ polish is one batched solve in pair space ``[B, 2n]``.  The multi-device
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from . import lbfgs, lbfgsb
 from .ops import history as hist_ops
+from .owlqn import pseudo_gradient
 from .params import LBFGSBParams, LBFGSParams
-from .types import (SUCCESS_STATUSES, SolveResult, Status, make_fun_and_grad,
-                    resolve_device, tree_map, tree_select)
+from .types import (SUCCESS_STATUSES, SolveResult, Status,
+                    data_fun_and_grad, make_fun_and_grad, resolve_device,
+                    tree_map, tree_select)
 from .utils import doublefloat as dfl
 
 Tensor = torch.Tensor
@@ -441,6 +446,121 @@ def polish_solve_b(fun: Optional[Callable], x0, lb, ub,
             prior = tree_map(lambda t: t[None], prior)
         res = res._replace(niter=prior.niter + pol.niter,
                            nfev=prior.nfev + pol.nfev + 5,
+                           status=prior.status, history=prior.history)
+    return lbfgs.unbatch(res) if single else res
+
+
+@functools.lru_cache(maxsize=16)
+def _owlqn_objectives(fun: Optional[Callable],
+                      fun_and_grad: Optional[Callable], with_data: bool):
+    """The per-instance objectives of the OWL-QN polish, built once per
+    loss so that the pair interpreter records each graph once: the masked
+    restriction ``masked(z, (data, pinned, sgn, lam))`` and the full L1
+    objective ``full(z, (data, lam))``.  Everything per instance enters as
+    data, none of it as a recorded constant."""
+    if fun is None:
+        def fun(x, *data):
+            return fun_and_grad(x, *data)[0]
+
+    def loss(x, data):
+        return fun(x, data) if with_data else fun(x)
+
+    def masked(z, aux):
+        data, pinned, sgn, lam = aux
+        xz = torch.where(pinned, 0.0, z)
+        return loss(xz, data) + \
+            torch.sum(torch.where(pinned, 0.0, lam * sgn * z))
+
+    def full(z, aux):
+        data, lam = aux
+        return loss(z, data) + torch.sum(lam * torch.abs(z))
+
+    return masked, full
+
+
+def polish_solve_owlqn(fun: Optional[Callable], x0, l1,
+                       params: LBFGSParams, iters: int, *,
+                       fun_and_grad=None,
+                       data: Any = None,
+                       line_search: str = "morethuente",
+                       direction: str = "sweeps",
+                       on_ls_fail: str = "stop",
+                       restarts: int = 1,
+                       prior: Optional[SolveResult] = None,
+                       device=None) -> SolveResult:
+    """The active-orthant df64 polish of L1-regularized (OWL-QN) f32
+    solutions ``x0 [B, n]`` (or one ``[n]``)
+    (lbfgspp_tpu/batch.py:344-439).
+
+    On the converged support the objective is smooth, so per instance:
+    coordinates at exact zero with ``|g_i| <= l1_i`` (KKT-consistent) are
+    pinned; every other coordinate keeps its orthant, ``sign(x_i)``, or
+    for a zero that is not KKT-consistent the pseudo-gradient's descent
+    orthant; the free ones are refined by up to ``iters`` iterations (in
+    ``restarts`` cold chunks) of the pair-space polish of ``loss(where(
+    pinned, 0, z)) + sum_free l1_i s_i z_i``, shifted by its df64 value at
+    ``x0``; the result is projected back onto the orthant (coordinates that
+    crossed zero become exact zeros) and kept only where the df64 full L1
+    objective did not grow, else ``x0`` stays.
+
+    ``fun(x[n])`` (or ``fun_and_grad``) is the loss; with ``data``,
+    ``fun(x[n], data_i)`` as in :func:`.owlqn.minimize_owlqn`.  ``l1`` is
+    a scalar, ``[n]`` or ``[B, n]``.  ``gnorm`` is the pseudo-gradient's
+    infinity norm (the KKT residual).  ``prior``: the OWL-QN solve whose
+    ``x`` this polishes; then ``niter``/``nfev`` are cumulative and its
+    ``status`` and ``history`` stay.  ``nfev`` adds five evaluations to the
+    polish's own, as in :func:`polish_solve_b`.
+    """
+    device = resolve_device(device)
+    single = torch.as_tensor(x0).dim() == 1
+    x0 = lbfgs.as_batch(x0, device)
+    lam = torch.as_tensor(l1, dtype=x0.dtype, device=device).expand(x0.shape)
+    fg = data_fun_and_grad(fun, fun_and_grad, data)
+    masked, full = _owlqn_objectives(fun, fun_and_grad, data is not None)
+    loss0, g0 = fg(x0)
+    fx0 = loss0 + (lam * x0.abs()).sum(-1)
+    zero = x0 == 0.0
+    pinned = zero & (g0.abs() <= lam)      # KKT-consistent exact zeros
+    # A zero that is not KKT-consistent takes the pseudo-gradient's
+    # descent orthant (pg > 0: f decreases into x < 0).
+    pg0 = pseudo_gradient(x0, g0, lam)
+    sgn = torch.where(zero, -torch.sign(pg0), torch.sign(x0))
+
+    # Without data, its slot is an empty tuple: a tree with no leaves.
+    lam, slot = lam.contiguous(), () if data is None else data
+    aux = (slot, pinned, sgn, lam)
+    ref = dfl.df64_value(masked, data=aux)(x0)
+    chi, clo = ref.hi, ref.lo
+    fg2 = dfl.df64_pair_fun_and_grad(masked, shift=(chi, clo), data=aux)
+    xs, niter, nfev = x0, 0, 0
+    for _ in range(restarts):
+        pol = _polish_pairs(fg2, xs, params, iters, line_search=line_search,
+                            drive="while", direction=direction,
+                            warm_history=None, on_ls_fail=on_ls_fail,
+                            device=device)
+        xs, niter, nfev = pol.x, niter + pol.niter, nfev + pol.nfev
+    # Orthant projection: coordinates that crossed zero become exact 0.
+    xp = torch.where(pinned | (sgn * xs < 0.0), 0.0, xs)
+
+    value = dfl.df64_value(full, data=(slot, lam))
+
+    def shifted(z):
+        return dfl.to_float(dfl.sub(dfl.sub(value(z), dfl.lift(chi)),
+                                    dfl.lift(clo)))
+
+    better = shifted(xp) <= shifted(x0)
+    x = torch.where(better[:, None], xp, x0)
+    loss_x, gx = fg(x)
+    fx = torch.where(better, loss_x + (lam * x.abs()).sum(-1), fx0)
+    grad = torch.where(better[:, None], gx, g0)
+    pgnorm = pseudo_gradient(x, grad, lam).abs().amax(dim=-1)
+    res = SolveResult(x=x, fx=fx, grad=grad, gnorm=pgnorm, niter=niter,
+                      nfev=nfev + 5, status=pol.status, history=pol.history)
+    if prior is not None:
+        if single:
+            prior = tree_map(lambda t: t[None], prior)
+        res = res._replace(niter=prior.niter + niter,
+                           nfev=prior.nfev + nfev + 5,
                            status=prior.status, history=prior.history)
     return lbfgs.unbatch(res) if single else res
 

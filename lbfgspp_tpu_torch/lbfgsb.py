@@ -111,10 +111,21 @@ def solver(fun: Optional[Callable] = None,
 
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run on
     the CPU."""
+    return _build_solver(make_fun_and_grad(fun, fun_and_grad), lb, ub,
+                         params, line_search=line_search, gcp=gcp,
+                         unroll_subspace=unroll_subspace,
+                         middle_solve=middle_solve, device=device)
+
+
+def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
+                  line_search="morethuente", gcp: str = "scan",
+                  unroll_subspace: bool = False, middle_solve=None,
+                  device=None) -> Solver:
+    """:func:`solver` on a ready batched oracle ``fg(x [B, n]) -> (fx [B],
+    grad [B, n])``."""
     gcp_fn = cauchy.GCP_IMPLS[_resolve_gcp(gcp)]
     bmat.resolve_middle_solve(middle_solve)
     device = resolve_device(device)
-    fg = make_fun_and_grad(fun, fun_and_grad)
     search = get_line_search(line_search)
     fpast = params.past
 

@@ -30,7 +30,7 @@ import torch
 
 from . import bkldlt
 from .fused import _matvec
-from .history import (LBFGSHistory, _full_precision, _write_correction,
+from .history import (LBFGSHistory, _write_correction, full_precision,
                       correction_products, init_history)
 from ..types import resolve_device
 
@@ -236,10 +236,10 @@ def _theta_s(bh: BHistory, v2m: Tensor) -> Tensor:
     return torch.cat([v2m[:, :m], v2m[:, m:] * bh.theta[:, None]], dim=1)
 
 
+@full_precision()
 def apply_wtv(bh: BHistory, v: Tensor) -> Tensor:
     """``W'v``, ``[B, n] -> [B, 2m]`` (BFGSMat::apply_Wtv,
     BFGSMat.h:315-320)."""
-    _full_precision()
     return torch.cat([_matvec(bh.base.y, v),
                       _matvec(bh.base.s, v) * bh.theta[:, None]], dim=1)
 
@@ -249,9 +249,9 @@ def apply_mv(bh: BHistory, v2m: Tensor) -> Tensor:
     return _matvec(bh.mdense, v2m)
 
 
+@full_precision()
 def w_matvec(bh: BHistory, v2m: Tensor) -> Tensor:
     """``W v2m``, ``[B, 2m] -> [B, n]``."""
-    _full_precision()
     m = bh.m
     return _matvec(bh.base.y.transpose(1, 2), v2m[:, :m]) + \
         _matvec(bh.base.s.transpose(1, 2), v2m[:, m:] * bh.theta[:, None])
@@ -279,6 +279,7 @@ def compute_ftbab(bh: BHistory, free_mask: Tensor, act_mask: Tensor,
     return apply_ptwmv(bh, free_mask, rhs, -1.0)
 
 
+@full_precision()
 def solve_ptbp(bh: BHistory, mask: Tensor, v: Tensor, middle_solve=None):
     """``inv(P'BP) v`` on the masked coordinates (BFGSMat::solve_PtBP,
     BFGSMat.h:529-565)::
@@ -287,7 +288,6 @@ def solve_ptbp(bh: BHistory, mask: Tensor, v: Tensor, middle_solve=None):
 
     with a fresh factorization of the 2m x 2m system per call.  Returns
     ``(res, info)``, ``res`` zero off ``mask``."""
-    _full_precision()
     m = bh.m
     theta = bh.theta
     th = theta[:, None, None]

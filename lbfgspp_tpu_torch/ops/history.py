@@ -8,9 +8,9 @@ through slot masks (``torch.where`` over the slot axis), the batched form of
 the JAX package's ``_masked_row_write`` vmap rule (history.py:171-180).
 
 Products are taken in full float32 on the card:
-``torch.backends.cuda.matmul.allow_tf32`` is switched off where they are
-taken (the JAX package pins ``Precision.HIGHEST`` there, history.py:121,
-:330).
+``torch.backends.cuda.matmul.allow_tf32`` is switched off around them and
+the caller's value restored after (the JAX package pins
+``Precision.HIGHEST`` on these einsums only, history.py:121, :330).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import fused
-from ..types import resolve_device
+from ..types import matmul_tf32, resolve_device
 
 Tensor = torch.Tensor
 
@@ -46,9 +46,10 @@ class LBFGSHistory(NamedTuple):
         return self.s.shape[1]
 
 
-def _full_precision() -> None:
-    # No TF32 in the history's products (the JAX package's HIGHEST).
-    torch.backends.cuda.matmul.allow_tf32 = False
+def full_precision():
+    """No TF32 in the history's own products (the JAX package's
+    HIGHEST), the caller's setting restored after."""
+    return matmul_tf32(False)
 
 
 def init_history(batch: int, n: int, m: int, dtype=torch.float32, *,
@@ -69,6 +70,7 @@ def init_history(batch: int, n: int, m: int, dtype=torch.float32, *,
         rinv=z(batch, m, m) if with_rinv else None)
 
 
+@full_precision()
 def correction_products(hist: LBFGSHistory, s: Tensor, y: Tensor):
     """Every inner product a correction update needs, batched.
 
@@ -78,7 +80,6 @@ def correction_products(hist: LBFGSHistory, s: Tensor, y: Tensor):
     operand: the same dots, without copying the history every iteration
     (the JAX package takes this form for n >= 2^20, history.py:122-136).
     """
-    _full_precision()
     rhs = torch.stack([y, s], dim=1)                 # [B, 2, n]
     rt = rhs.transpose(1, 2)                         # [B, n, 2]
     yx = torch.bmm(hist.y, rt)
@@ -184,28 +185,28 @@ def apply_hv(hist: LBFGSHistory, v: Tensor, a: float,
     if tri != "doubling":
         raise ValueError(f"tri must be 'sweeps', 'rinv' or 'doubling', got "
                          f"{tri!r}")
-    _full_precision()
-    m = hist.m
-    th = hist.theta[:, None]
-    msy, msyT, ys_safe, vmask, valid = fused._prep_masks(
-        hist.ys, hist.ptr, hist.ncorr, hist.sy, v.dtype)
-    sv = fused._matvec(hist.s, v)
-    yv = fused._matvec(hist.y, v)
-    n_steps = max(1, (m - 1).bit_length())
+    with full_precision():
+        m = hist.m
+        th = hist.theta[:, None]
+        msy, msyT, ys_safe, vmask, valid = fused._prep_masks(
+            hist.ys, hist.ptr, hist.ncorr, hist.sy, v.dtype)
+        sv = fused._matvec(hist.s, v)
+        yv = fused._matvec(hist.y, v)
+        n_steps = max(1, (m - 1).bit_length())
 
-    def tri_solve(nmat, rhs):
-        b_mat = -(nmat / ys_safe[:, :, None])
-        x = vmask * rhs / ys_safe
-        for _ in range(n_steps):
-            x = x + fused._matvec(b_mat, x)
-            b_mat = b_mat @ b_mat
-        return vmask * x
+        def tri_solve(nmat, rhs):
+            b_mat = -(nmat / ys_safe[:, :, None])
+            x = vmask * rhs / ys_safe
+            for _ in range(n_steps):
+                x = x + fused._matvec(b_mat, x)
+                b_mat = b_mat @ b_mat
+            return vmask * x
 
-    alpha = tri_solve(msy, a * sv)
-    base = (a * yv - fused._matvec(hist.yy, alpha)) / th
-    beta = tri_solve(msyT, base + fused._matvec(msyT, alpha))
-    return fused.combine(hist.s, hist.y, v, alpha, beta, valid, hist.theta,
-                         a)
+        alpha = tri_solve(msy, a * sv)
+        base = (a * yv - fused._matvec(hist.yy, alpha)) / th
+        beta = tri_solve(msyT, base + fused._matvec(msyT, alpha))
+        return fused.combine(hist.s, hist.y, v, alpha, beta, valid,
+                             hist.theta, a)
 
 
 def apply_hv_reference(hist: LBFGSHistory, v: Tensor, a: float) -> Tensor:
@@ -277,13 +278,13 @@ def _blocks(tl: Tensor, tr: Tensor, bl: Tensor, br: Tensor) -> Tensor:
                      dim=1)
 
 
+@full_precision()
 def bmat(hist: LBFGSHistory) -> Tensor:
     """Dense ``B = theta*I - W Minv^{-1} W'`` with ``W = [Y, theta*S]``,
     ``[B, n, n]`` (BFGSMat::get_Bmat, BFGSMat.h:150-208;
     lbfgspp_tpu/ops/history.py:508-536).  Unused slots add zero columns to
     W and identity rows and columns to ``Minv``, so the result is exact at
     any fill level."""
-    _full_precision()
     m = hist.m
     n = hist.s.shape[2]
     dtype, dev = hist.s.dtype, hist.s.device
@@ -303,13 +304,13 @@ def bmat(hist: LBFGSHistory) -> Tensor:
         w.transpose(1, 2) @ mid
 
 
+@full_precision()
 def hmat(hist: LBFGSHistory) -> Tensor:
     """Dense ``H = I/theta + W M W'`` with ``W = [Y/theta, S]``,
     ``[B, n, n]`` (BFGSMat::get_Hmat, BFGSMat.h:211-271;
     lbfgspp_tpu/ops/history.py:539-569): the Byrd-Nocedal-Schnabel form
     with ``M = [[0, -R^{-1}], [-R^{-T}, R^{-T}(D + Y'Y/theta)R^{-1}]]``,
     ``R`` the age-ordered upper triangle of ``S'Y``."""
-    _full_precision()
     m = hist.m
     n = hist.s.shape[2]
     dtype, dev = hist.s.dtype, hist.s.device

@@ -11,6 +11,7 @@ semantics written out.
 
 from __future__ import annotations
 
+import contextlib
 import enum
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -76,8 +77,8 @@ ValueAndGrad = Callable[[Tensor], tuple]
 
 
 def make_fun_and_grad(fun: Optional[Callable] = None,
-                      fun_and_grad: Optional[Callable] = None
-                      ) -> ValueAndGrad:
+                      fun_and_grad: Optional[Callable] = None,
+                      with_data: bool = False) -> ValueAndGrad:
     """Build the batched objective oracle used by solvers and line searches.
 
     The user writes the objective for ONE instance, ``fun(x[n]) -> fx`` or
@@ -85,18 +86,39 @@ def make_fun_and_grad(fun: Optional[Callable] = None,
     port maps it over the batch with ``torch.func.vmap``; the gradient of a
     plain ``fun`` comes from ``torch.func.grad_and_value`` (the counterpart
     of ``jax.value_and_grad``).
+
+    ``with_data``: the objective is ``fun(x[n], data_i)`` and the oracle
+    ``(x [B, n], data) -> (fx, grad)`` maps both over the batch
+    (``in_dims=(0, 0)``); ``data`` is a tensor or a tree of tensors with a
+    leading ``[B]`` axis.  :func:`data_fun_and_grad` binds it.
     """
+    in_dims = (0, 0) if with_data else 0
     if fun_and_grad is not None:
-        return torch.func.vmap(fun_and_grad)
+        return torch.func.vmap(fun_and_grad, in_dims=in_dims)
     if fun is None:
         raise ValueError("either 'fun' or 'fun_and_grad' must be provided")
-    grad_value = torch.func.vmap(torch.func.grad_and_value(fun))
+    grad_value = torch.func.vmap(torch.func.grad_and_value(fun),
+                                 in_dims=in_dims)
 
-    def fg(x: Tensor):
-        grad, fx = grad_value(x)
+    def fg(x: Tensor, *data):
+        grad, fx = grad_value(x, *data)
         return fx, grad
 
     return fg
+
+
+def data_fun_and_grad(fun: Optional[Callable] = None,
+                      fun_and_grad: Optional[Callable] = None,
+                      data: Any = None) -> ValueAndGrad:
+    """The batched oracle ``x [B, n] -> (fx [B], grad [B, n])`` of
+    ``fun(x[n], data_i)`` with every instance's own ``data`` (a tensor or a
+    tree of tensors with a leading ``[B]`` axis), or of ``fun(x[n])`` when
+    ``data`` is None: the batch-explicit form of vmapping a JAX solve over
+    a closure.  The oracle's calls must pass the whole batch."""
+    if data is None:
+        return make_fun_and_grad(fun, fun_and_grad)
+    fgd = make_fun_and_grad(fun, fun_and_grad, with_data=True)
+    return lambda x: fgd(x, data)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -117,6 +139,23 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            f"available")
     return device
+
+
+@contextlib.contextmanager
+def matmul_tf32(allowed: bool):
+    """Set ``torch.backends.cuda.matmul.allow_tf32`` to ``allowed`` inside
+    the block and give the caller's value back on exit, exceptions
+    included; also a decorator.  The port's products that must run in
+    full float32 (the JAX package pins ``Precision.HIGHEST`` on its own
+    einsums) take ``matmul_tf32(False)``, so a solve never changes the
+    caller's setting."""
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    flags.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = before
 
 
 def i32_like(value: int, like: Tensor) -> Tensor:

@@ -42,6 +42,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.fx.node import Node, map_arg
+from torch.utils import _pytree as pytree
 
 from ..types import make_fun_and_grad
 
@@ -627,6 +628,9 @@ _RULES = {
     "reciprocal": lambda a: div(lift(torch.ones_like(a.hi)), a),
     "square": lambda a: mul(a, a),
     "abs": _abs,
+    # the sign of a normalized pair is its hi word's (lo is 0 where hi is)
+    "sign": lambda a: lift(torch.sign(a.hi)),
+    "sgn": lambda a: lift(torch.sign(a.hi)),
     "maximum": lambda a, b: _minmax(*_pair_operands(a, b), True),
     "minimum": lambda a, b: _minmax(*_pair_operands(a, b), False),
     "clamp": _rule_clamp,
@@ -773,9 +777,28 @@ def df64_fun_and_grad(fun: Callable) -> Callable:
     return df64ify(make_fun_and_grad(fun))
 
 
+def _recorded_oracle(fun, fun_and_grad, data):
+    """``(fg, leaves, key)``: the batched oracle to record, the data
+    tensors it takes after ``x`` and its trace key.  With ``data`` (a
+    tensor or tree of tensors with a leading ``[B]`` axis, the objective
+    ``fun(x[n], data_i)``) the data's leaves are graph inputs, not
+    recorded constants, so one graph serves every batch of data of the
+    same shapes."""
+    if data is None:
+        return make_fun_and_grad(fun, fun_and_grad), [], \
+            ("pair", fun, fun_and_grad)
+    leaves, spec = pytree.tree_flatten(data)
+    fgd = make_fun_and_grad(fun, fun_and_grad, with_data=True)
+
+    def fg(x, *parts):
+        return fgd(x, pytree.tree_unflatten(list(parts), spec))
+
+    return fg, leaves, ("pair", fun, fun_and_grad, str(spec))
+
+
 def df64_pair_fun_and_grad(fun: Callable = None,
                            fun_and_grad: Callable = None,
-                           shift=None, pin=None) -> Callable:
+                           shift=None, pin=None, data=None) -> Callable:
     """Lift the per-instance ``fun`` (or ``fun_and_grad``) to the paired
     parameter space ``x2 = [hi; lo]`` of a batch, ``x2 [B, 2n]``.
 
@@ -795,9 +818,12 @@ def df64_pair_fun_and_grad(fun: Callable = None,
     JAX package's ``fun(where(active, xpin, z))`` (the box polish,
     lbfgspp_tpu/batch.py:292-299).  Both enter as data, outside the
     recorded graph, which stays the unpinned objective's.
+
+    ``data``: every instance's own data for ``fun(x[n], data_i)`` (see
+    :func:`..types.make_fun_and_grad`), graph inputs like ``x``; exact
+    constants of the pair arithmetic (zero lo words).
     """
-    fg = make_fun_and_grad(fun, fun_and_grad)
-    key = ("pair", fun, fun_and_grad)
+    fg, leaves, key = _recorded_oracle(fun, fun_and_grad, data)
 
     def fg2(x2: Tensor):
         n = x2.shape[-1] // 2
@@ -806,8 +832,8 @@ def df64_pair_fun_and_grad(fun: Callable = None,
             active, xpin = pin
             s = torch.where(active, xpin, s)
             e = torch.where(active, 0.0, e)
-        gm = _traced(key, fg, [s])
-        fx, g = _interpret(gm, [DF(s, e)])
+        gm = _traced(key, fg, [s] + leaves)
+        fx, g = _interpret(gm, [DF(s, e)] + leaves)
         if shift is not None:
             fx = sub(sub(fx, lift(shift[0])), lift(shift[1]))
         g1 = to_float(g)
@@ -818,15 +844,16 @@ def df64_pair_fun_and_grad(fun: Callable = None,
     return fg2
 
 
-def df64_value(fun: Callable = None, fun_and_grad: Callable = None):
+def df64_value(fun: Callable = None, fun_and_grad: Callable = None,
+               data=None):
     """``x [B, n] -> DF fx [B]``: the per-instance objective's value in
-    pairs at the (exact) native ``x``."""
-    fg = make_fun_and_grad(fun, fun_and_grad)
-    key = ("pair", fun, fun_and_grad)
+    pairs at the (exact) native ``x``; ``data`` as in
+    :func:`df64_pair_fun_and_grad`."""
+    fg, leaves, key = _recorded_oracle(fun, fun_and_grad, data)
 
     def value(x: Tensor) -> DF:
-        gm = _traced(key, fg, [x])
-        fx, _ = _interpret(gm, [lift(x)])
+        gm = _traced(key, fg, [x] + leaves)
+        fx, _ = _interpret(gm, [lift(x)] + leaves)
         return fx
 
     return value

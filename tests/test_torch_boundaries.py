@@ -63,6 +63,18 @@ def _entry_points():
             objectives.quadratic, x0, p, **kw),
         "solver": lambda **kw: T.solver(objectives.quadratic, p, **kw),
         "init_history": lambda **kw: history.init_history(2, 4, 3, **kw),
+        "minimize_owlqn": lambda **kw: T.minimize_owlqn(
+            objectives.quadratic, x0, 0.1, p, **kw),
+        "polish_solve_owlqn": lambda **kw: T.polish_solve_owlqn(
+            objectives.quadratic, x0, 0.1, p, 2, **kw),
+        "minimize_stochastic": lambda **kw: T.minimize_stochastic(
+            lambda w, rows: torch.sum((w - rows) ** 2), torch.zeros(4),
+            torch.zeros(8, 4), p, batch_size=4, **kw),
+        "implicit_minimize": lambda **kw: T.implicit_minimize(
+            lambda x, t: torch.sum((x - t) ** 2), x0, torch.zeros(2, 4), p,
+            **kw),
+        "minimize_pytree": lambda **kw: T.minimize_pytree(
+            lambda t: torch.sum(t["a"] ** 2), {"a": torch.ones(3)}, p, **kw),
     }
 
 

@@ -15,8 +15,10 @@ The cases cover both copy paths of the main kernel (bulk copies at n=100;
 unstaged plan (n=1000 in f64: rows read from device memory; in f32 the
 rows are staged at one warp per SM), the ragged tail of
 its persistent walk (B=4097), a history after the restart's soft reset,
-and the first design,
-``fused.two_loop_simple``, kept as a yardstick.
+the solver families' shapes (B=1, m=8, n=256; B=1024, m=6, n=64 and its
+pair shape n=128), and the first design, ``fused.two_loop_simple``, kept
+as a yardstick.  OWL-QN runs on the card against the CPU, and its fast
+phase's TF32 scope is read inside the objective.
 """
 
 import functools
@@ -329,3 +331,97 @@ def test_box_solve_on_card_equals_cpu(cuda):
     assert torch.equal(card.niter.cpu(), cpu.niter)
     assert torch.equal(card.status.cpu(), cpu.status)
     torch.testing.assert_close(card.x.cpu(), cpu.x, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("mode", ["sweeps", "rinv"])
+@pytest.mark.parametrize("batch,n,m", [
+    (1, 256, 8),        # the stochastic step
+    (1024, 64, 6),      # OWL-QN and the implicit adjoint's preconditioner
+    (1024, 128, 6),     # OWL-QN's df64 polish (pair space)
+])
+def test_kernel_matches_plain_at_the_solver_family_shapes(cuda, dtype, rtol,
+                                                          mode, batch, n, m):
+    ncorrs = tuple(int(k) for k in np.random.default_rng(batch).integers(
+        0, 3 * m, batch)) if batch > 1 else (m + 3,)
+    h = _on_card(_cached_history(batch, n, m, ncorrs, n), cuda, dtype)
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal((batch, n)),
+                        dtype=dtype, device=cuda)
+    before = fused.two_loop.launches
+    got = fused.two_loop(*_args(h, v), -1.0, mode)
+    torch.cuda.synchronize()
+    assert fused.two_loop.launches == before + 1
+    want = fused.two_loop_plain(*_args(h, v), -1.0, mode)
+    assert (got - want).abs().max().item() <= \
+        rtol * want.abs().max().item()
+
+
+def _separable_l1(device):
+    rng = np.random.default_rng(1)
+    t = torch.as_tensor(rng.uniform(-1.0, 1.0, (64, 12)), device=device)
+    c = torch.as_tensor(rng.uniform(0.1, 2.0, (64, 12)), device=device)
+    lam = rng.uniform(0.0, 0.3, (64, 12))
+    lam[:, 0] = 0.0
+    x0 = torch.as_tensor(rng.uniform(-1.0, 1.0, (64, 12)), device=device)
+    return x0, torch.as_tensor(lam, device=device), (t, c)
+
+
+def _separable_loss(x, d):
+    return torch.sum(d[1] * ((x - d[0]) ** 2) ** 2 + 0.5 * (x - d[0]) ** 2)
+
+
+def test_owlqn_on_card_equals_cpu(cuda):
+    """OWL-QN, f64, a separable quartic + L1 batch with per-instance data
+    and lambda: the same iterations, evaluations and statuses on the card
+    and on the CPU, x to 1e-10, one kernel launch per batched
+    iteration."""
+    from lbfgspp_tpu_torch import owlqn
+    p = lt.LBFGSParams(epsilon=1e-7, epsilon_rel=0.0, max_iterations=200)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        x0, lam, data = _separable_l1(dev)
+        owlqn.COUNTS.clear()
+        before = fused.two_loop.launches
+        runs[dev.type] = lt.minimize_owlqn(_separable_loss, x0, lam, p,
+                                           data=data, device=dev)
+        if dev.type == "cuda":
+            assert fused.two_loop.launches - before == \
+                owlqn.COUNTS["iterations"]
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert torch.equal(card.niter.cpu(), cpu.niter)
+    assert torch.equal(card.nfev.cpu(), cpu.nfev)
+    assert torch.equal(card.status.cpu(), cpu.status)
+    torch.testing.assert_close(card.x.cpu(), cpu.x, rtol=0, atol=1e-10)
+    assert torch.equal(card.x.cpu() == 0, cpu.x == 0)
+
+
+def test_owlqn_fast_phase_scopes_tf32_on_card(cuda):
+    """fast_phase_epsilon: the objective runs with TF32 allowed in phase 1
+    and not in phase 2, read inside the objective on the card; the
+    history's products never change the caller's flag, which is back
+    after the solve."""
+    flags = torch.backends.cuda.matmul
+    seen = []
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(32, 48, 16, generator=gen, device=cuda) / 48 ** 0.5
+    b = torch.randn(32, 48, generator=gen, device=cuda)
+
+    def loss(x, d):
+        seen.append(flags.allow_tf32)
+        return 0.5 * torch.sum((d[0] @ x - d[1]) ** 2)
+
+    before = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        res = lt.minimize_owlqn(
+            loss, torch.zeros(32, 16, device=cuda), 0.01,
+            lt.LBFGSParams(epsilon=1e-5, epsilon_rel=0.0,
+                           max_iterations=150),
+            data=(a, b), fast_phase_epsilon=1e-3, device=cuda)
+        assert flags.allow_tf32 is False
+    finally:
+        flags.allow_tf32 = before
+    n1 = seen.index(False)
+    assert n1 > 1 and all(seen[:n1]) and not any(seen[n1:])
+    assert torch.isfinite(res.x).all()

@@ -218,3 +218,51 @@ class TestRinvFromGrams:
         th = TH.init_history(2, 10, 4, F64, device="cpu")
         assert torch.equal(TH.rinv_from_grams(th),
                            torch.zeros(2, 4, 4, dtype=F64))
+
+
+@pytest.mark.parametrize("entry", ["minimize", "minimize_b", "bmat",
+                                   "raises"])
+def test_solves_leave_the_callers_tf32_setting(entry):
+    """The history's and bmat's products run with TF32 off and give the
+    caller's ``allow_tf32`` back, also when the objective raises; the
+    objective itself runs at the caller's setting."""
+    import lbfgspp_tpu_torch as lt
+    from lbfgspp_tpu_torch.ops import bmat as TB
+
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    seen = []
+
+    def fun(x):
+        seen.append(flags.allow_tf32)
+        if entry == "raises" and len(seen) > 3:   # after history updates
+            raise RuntimeError("objective failed")
+        return torch.sum((x - 1.0) ** 2) + torch.sum(x ** 4)
+
+    x0 = torch.zeros(3, 4, dtype=F64)
+    p = lt.LBFGSParams(epsilon=1e-8, max_iterations=20)
+    flags.allow_tf32 = True
+    try:
+        if entry in ("minimize", "raises"):
+            if entry == "raises":
+                with pytest.raises(RuntimeError, match="objective failed"):
+                    lt.minimize(fun, x0, p, device="cpu")
+            else:
+                res = lt.minimize(fun, x0, p, device="cpu")
+                assert int(res.niter.max()) > 1
+        elif entry == "minimize_b":
+            lt.minimize_b(fun, x0, torch.full((4,), -0.5, dtype=F64),
+                          torch.full((4,), 0.5, dtype=F64),
+                          lt.LBFGSBParams(epsilon=1e-8, max_iterations=20),
+                          device="cpu")
+        else:
+            _, th = build_both(2, 10, 4, (5, 2), seed=7)
+            TH.bmat(th)
+            TH.hmat(th)
+            TB.solve_ptbp(TB.init_b_history(2, 10, 4, F64, device="cpu"),
+                          torch.ones(2, 10, dtype=torch.bool),
+                          torch.ones(2, 10, dtype=F64))
+        assert flags.allow_tf32 is True
+        assert all(seen) and (entry == "bmat" or seen)
+    finally:
+        flags.allow_tf32 = before
