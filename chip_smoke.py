@@ -107,6 +107,35 @@ Phases (any failure makes the script exit 1 and print no result):
    first 16 within 1e-5 of central finite differences (eps 1e-5) of the
    validation loss at Newton-refined argmins.
 
+18. the kernel's bf16 modes (all bf16, as the Pallas kernel's bf16 mode;
+   bf16 rows beside f32 operands, as a float32 solve with
+   ``history_dtype=torch.bfloat16``) against the plain version, in
+   ``sweeps`` and ``rinv``, at the main shape, m=1 with B=4097 and n=101
+   (rows in device memory), s / v at an odd offset, and bf16 rows at B=1,
+   m=6, n=2^27 (the kernel launched directly: ``two_loop`` sends that
+   shape to the plain version), then a call through each plain route of
+   ``fused.route`` (m=200 f32, m=120 f64, f16, n=2^27) counted in
+   ``two_loop.plain_routes``, the kernel against plain in f32 and with
+   bf16 rows at B = 1 to 2112 and n = 2^14..2^16 (the dispatch rule: the
+   route taken must not lose on both device time and time per call by
+   more than 25%), and the modes' times at the
+   main shape on phase 4's state in turns with f32 (CUDA events, median of
+   25, L2 flushed), beside the bound;
+19. phase 4's main phase through ``lbfgs.minimize`` with f32 rows and
+   with bf16 rows (``history_dtype``), in turns, then all in bf16 (x0
+   bf16, ``sweeps``, epsilon 0.125): solves/s and quality fractions;
+   every x finite, the launches of each mode equal the batched
+   iterations, no plain route;
+20. the largest-n solve (scripts/bench_largest_n.py's plain path):
+   ``rosenbrock_split`` at n = 2^27, f32, m=6, epsilon=0, 6 and 16
+   iterations differenced, with bf16 rows and with f32 rows: seconds per
+   iteration, bytes per iteration and their share of the measured
+   bandwidth, peak memory;
+21. ``history_dtype=torch.bfloat16`` on phase 15's lasso and phase 16's
+   stochastic run (rows stored in bf16, phase 16's loss gate), one
+   ``scipy_compat.minimize`` solve on the card, 20 ``optax_compat.LBFGS``
+   steps of a small MLP and a checkpoint round trip of a card state.
+
 Phase 5 also times the kernel at the pair shapes beside their bound;
 phase 2 also checks the solver families' shapes.  The last lines are the
 card's name and power limit (nvidia-smi), a JSON ``kernels`` line, and
@@ -127,7 +156,8 @@ import traceback
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
+# outside tensor cores; the kernel computes bf16 operands in float32
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
 L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2
 TIMED_LAUNCHES = 25
 COPY_PROBE_BYTES = 64 << 20     # the achievable-bandwidth probe
@@ -151,6 +181,16 @@ OWL_POLISH_ITERS, OWL_CHECK = 30, 64
 STOCH_ROWS, STOCH_DIM, STOCH_BATCH = 1 << 16, 256, 4096
 STOCH_M, STOCH_STEPS = 8, 100
 IMP_BATCH, IMP_ROWS, IMP_D, IMP_CHECK = 1024, 512, 64, 16
+# The largest-n solve (phase 20; scripts/bench_largest_n.py) and the
+# kernel's bf16-row check at its shape (phase 18).
+LARGEST_N = 1 << 27
+# The dispatch rule's sweep (phase 18): the batches of each type around
+# its threshold, and n around fused.LARGE_N; the route two_loop takes may
+# lose to the other on one of device time and time per call, or on both
+# by at most this share.
+RULE_POINTS = {"f32": (1, 8, 1056, 2112), "bf16rows": (1, 132, 264, 2112)}
+RULE_LOG_N = (14, 15, 16)
+RULE_MARGIN = 0.25
 
 
 def _log(*args):
@@ -227,12 +267,13 @@ def cast(h, dtype):
                      for t in h))
 
 
-def two_loop_bytes(h, v, mode) -> int:
-    """Bytes one call must move: each input read once, the output written
-    once."""
-    mats = (h.rinv if mode == "rinv" else h.sy, h.yy)
-    ins = (h.s, h.y, h.ys, h.theta, h.ptr, h.ncorr, v) + mats
-    return sum(t.numel() * t.element_size() for t in ins) + \
+def args_bytes(args, mode) -> int:
+    """Bytes one call on ``kernel_args`` must move: each input read once,
+    the output (v's shape and type) written once."""
+    v = args[9]
+    mats = (args[8] if mode == "rinv" else args[6], args[7])
+    return sum(t.numel() * t.element_size()
+               for t in args[:6] + (v,) + mats) + \
         v.numel() * v.element_size()
 
 
@@ -295,10 +336,7 @@ def time_vs_bound(torch, fused, args, mode, flush) -> dict:
                                                             mode), flush)
     s, v = args[0], args[9]
     batch, m, n = s.shape
-    mats = (args[8] if mode == "rinv" else args[6], args[7])
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in args[:6] + (v,) + mats) + \
-        v.numel() * v.element_size()
+    nbytes = args_bytes(args, mode)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = two_loop_flops(batch, m, n, mode) / \
         PEAK_FLOPS[str(v.dtype)[6:]] * 1e3
@@ -390,7 +428,8 @@ def main() -> int:
         for line in ptxas_report(cuda_build.build_logs.get("two_loop", "")):
             _log("   ptxas:", line)
         for dtype in (torch.float32, torch.float64):
-            plan = fused.launch_plan(MAIN_BATCH, MAIN_M, MAIN_N, dtype,
+            plan = fused.launch_plan(MAIN_BATCH, MAIN_M, MAIN_N,
+                                     fused.KINDS[dtype, dtype],
                                      fused.num_sms(dev))
             _log(f"   plan {str(dtype)[6:]}: {plan}")
 
@@ -584,6 +623,7 @@ def main() -> int:
              f"{2 * COPY_PROBE_BYTES / copy_ms / 1e9:.3f} TB/s read+write "
              f"({2 * COPY_PROBE_BYTES / copy_ms * 1e3 / HBM_BYTES_PER_S:.1%}"
              f" of {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        main_state["bandwidth"] = 2 * COPY_PROBE_BYTES / copy_ms * 1e3
         read_ms = median_ms(lambda: src.view(torch.float32).sum())
         _log(f"   achievable read bandwidth: summing {COPY_PROBE_BYTES >> 20}"
              f" MB takes {read_ms:.4f} ms = "
@@ -620,7 +660,7 @@ def main() -> int:
                 s_ms = (turns[0] + turns[3]) / 2
                 p_ms = median_ms(lambda: fused.two_loop_plain(*args, -1.0,
                                                               mode))
-                nbytes = two_loop_bytes(h, v, mode)
+                nbytes = args_bytes(args, mode)
                 flops = two_loop_flops(MAIN_BATCH, MAIN_M, MAIN_N, mode)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / PEAK_FLOPS[name] * 1e3
@@ -1659,6 +1699,472 @@ def main() -> int:
 
     smoke.phase("implicit differentiation at full width", implicit_path)
 
+    # 18 --------------------------------------------------------------
+    # The kernel's bf16 modes: all-bf16 (the Pallas kernel's bf16 mode) and
+    # bf16 rows beside f32 operands (a float32 solve whose history stores
+    # bf16 rows).  Tolerances: bf16 rows 1e-4 of the largest output, as
+    # phase 2's f32; all bf16 2^-8 of each instance's largest output
+    # against the plain version computed in f32 from the same bf16 inputs
+    # (the kernel rounds its f32 result once, at most half a bf16 ulp).
+    bf16 = torch.bfloat16
+    kinds = {"bf16": bf16, "bf16rows": torch.float32}   # kind -> operands
+    bf16_state = {}
+
+    def bf16_args(args, op):
+        """bf16 rows (s, y); every other floating operand in ``op``."""
+        return tuple(t.to(bf16 if k < 2 else op)
+                     if t is not None and t.is_floating_point() else t
+                     for k, t in enumerate(args))
+
+    def bf16_error(args, got, mode):
+        """(the gated error, per instance over its largest output; its
+        error against the plain f32 rounded once and against the plain
+        version that rounds per op, the same way)."""
+        def rel(a, b):
+            return ((a.float() - b.float()).abs().amax(1) /
+                    b.float().abs().amax(1).clamp_min(1e-30)).max().item()
+        if got.dtype == bf16:
+            f32 = fused.two_loop_plain(*cast_args(args, torch.float32),
+                                       -1.0, mode)
+            per_op = fused.two_loop_plain(*args, -1.0, mode)
+            return rel(got, f32), rel(got, f32.to(bf16)), rel(got, per_op)
+        want = fused.two_loop_plain(*args, -1.0, mode)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        return err, err, err
+
+    def synthetic(batch, n, m, op, seed, rows=bf16):
+        """Random rows (bf16 by default) and well-scaled [m, m] operands
+        made on the card (a history of this size is not built pair by
+        pair)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        s = torch.randn(batch, m, n, generator=g, device=dev).to(rows)
+        y = torch.randn(batch, m, n, generator=g, device=dev).to(rows)
+        ys = torch.rand(batch, m, generator=g, device=dev) + 1.0
+        mats = [0.01 * torch.randn(batch, m, m, generator=g, device=dev)
+                for _ in range(3)]
+        v = torch.randn(batch, n, generator=g, device=dev)
+        ints = [torch.full((batch,), m, dtype=torch.int32, device=dev)] * 2
+        return (s, y) + tuple(
+            t.to(op) if t.is_floating_point() else t
+            for t in (ys, torch.ones(batch, device=dev), *ints, *mats, v))
+
+    def bf16_kernel():
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        worst = []
+        shapes = [
+            ("main shape", MAIN_BATCH, MAIN_N, MAIN_M,
+             np.random.default_rng(3).integers(0, 3 * MAIN_M, MAIN_BATCH)),
+            ("m=1 B=4097 n=101", MAIN_BATCH + 1, 101, 1,
+             np.random.default_rng(4).integers(0, 3, MAIN_BATCH + 1)),
+            ("odd offset", 300, MAIN_N, MAIN_M,
+             np.random.default_rng(6).integers(0, 3 * MAIN_M, 300)),
+        ]
+        for label, batch, n, m, ncorrs in shapes:
+            h64 = random_history(torch, history, batch, n, m, ncorrs,
+                                 seed=m, device=dev)
+            v64 = torch.as_tensor(np.random.default_rng(1).standard_normal(
+                (batch, n)), device=dev)
+            for kind, op in kinds.items():
+                args = bf16_args(kernel_args(h64, v64), op)
+                if label == "odd offset":
+                    args = (at_odd_offset(torch, args[0]),) + args[1:9] + \
+                        (at_odd_offset(torch, args[9]),)
+                for mode in ("sweeps", "rinv"):
+                    plan, why = fused.route(*args, mode)
+                    if plan is None or plan.kind != kind:
+                        raise AssertionError(f"{label} {kind}: routed to "
+                                             f"{why}")
+                    got = fused.two_loop(*args, -1.0, mode)
+                    torch.cuda.synchronize()
+                    err, rounded, per_op = bf16_error(args, got, mode)
+                    limit = 2.0 ** -8 if op == bf16 else 1e-4
+                    ok = err <= limit
+                    _log(f"   {label:16s} {kind:8s} {mode:6s} error "
+                         f"{err:.3e} (limit {limit:.3e}) "
+                         f"{'ok' if ok else 'TOO LARGE'}; against plain f32 "
+                         f"rounded once {rounded:.3e}, against plain per op "
+                         f"{per_op:.3e}; plan {plan.warps} warps x "
+                         f"{plan.stages} stages, staged {plan.staged}, "
+                         f"copies {sorted(set(plan.copy.values()))}")
+                    if not ok:
+                        worst.append((label, kind, mode, err))
+                    if label == "main shape" and mode == "rinv":
+                        smoke.kernel_rows[f"{kind}_max_abs_err"] = \
+                            (got.float() - fused.two_loop_plain(
+                                *cast_args(args, torch.float32), -1.0,
+                                mode)).abs().max().item()
+        # The largest-n shape: bf16 rows of one instance, m=6, n=2^27.
+        # two_loop sends it to the plain version ("large n"); the kernel
+        # is launched here directly (one launch per mode, seconds each).
+        big = synthetic(1, LARGEST_N, 6, torch.float32, seed=5)
+        for mode in ("rinv", "sweeps"):
+            plan = fused.plan_for(*big, mode)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            got = fused._launch(plan, *big, -1.0, mode)
+            e1.record()
+            torch.cuda.synchronize()
+            err = bf16_error(big, got, mode)[0]
+            p_ms = median_ms_of(torch, lambda: fused.two_loop_plain(
+                *big, -1.0, mode), flush)
+            nbytes = args_bytes(big, mode)
+            _log(f"   B=1 m=6 n=2^{LARGEST_N.bit_length() - 1} bf16rows "
+                 f"{mode:6s}: kernel {e0.elapsed_time(e1):.1f} ms (one "
+                 f"launch, rows in memory, warps {plan.warps}), plain "
+                 f"{p_ms:.3f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+                 f" ms ({nbytes / 1e9:.2f} GB); error {err:.3e} (limit "
+                 f"1e-4) {'ok' if err <= 1e-4 else 'TOO LARGE'}")
+            if not err <= 1e-4:
+                worst.append(("largest n", "bf16rows", mode, err))
+        # The dispatch: every plain route once, counted apart.
+        fused.reset_counts()
+        fused.two_loop(*big, -1.0, "rinv")
+        del big, got
+        torch.cuda.empty_cache()
+        for label, batch, n, m, dtype in (
+                ("m=200 f32", 4, MAIN_N, 200, torch.float32),
+                ("m=120 f64", 4, MAIN_N, 120, torch.float64),
+                ("f16", 5, 24, 6, torch.float16)):
+            h = random_history(torch, history, batch, n, m, [m + 3] * batch,
+                               seed=m, device=dev)
+            args = cast_args(kernel_args(h, torch.as_tensor(
+                np.random.default_rng(2).standard_normal((batch, n)),
+                device=dev)), dtype)
+            got = fused.two_loop(*args, -1.0, "rinv")
+            torch.cuda.synchronize()
+            _log(f"   {label}: routed to the plain version; finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        routes = dict(fused.two_loop.plain_reasons)
+        _log(f"   plain routes {fused.two_loop.plain_routes} {routes}, "
+             f"kernel launches {fused.two_loop.launches}")
+        if routes != {"large n": 1, "shared memory": 2, "dtype": 1} or \
+                fused.two_loop.launches:
+            raise AssertionError("the plain routes are not as expected")
+        # The dispatch rule on (B, n): f32 and bf16 rows, m=6, rinv, the
+        # kernel (launched with its own plan) against plain around LARGE_N
+        # and around each type's batch threshold; device time (CUDA events,
+        # the host held back) and the time a solver's loop pays per call
+        # (host clock over 25 calls in a row, then a synchronize: the plain
+        # version's ~40 launches included).  The route two_loop takes must
+        # not lose on both by more than RULE_MARGIN.
+        def per_call_ms(fn, calls=25):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / calls * 1e3
+
+        for kind, batches in RULE_POINTS.items():
+            for batch in batches:
+                for lg in RULE_LOG_N:
+                    args = synthetic(batch, 1 << lg, 6, torch.float32,
+                                     seed=lg, rows=torch.float32
+                                     if kind == "f32" else bf16)
+                    plan = fused.plan_for(*args, "rinv")
+
+                    def kernel():
+                        return fused._launch(plan, *args, -1.0, "rinv")
+
+                    def plain():
+                        return fused.two_loop_plain(*args, -1.0, "rinv")
+                    k_ms, p_ms = (median_ms_of(torch, f, flush)
+                                  for f in (kernel, plain))
+                    k_call, p_call = per_call_ms(kernel), per_call_ms(plain)
+                    took = fused.route(*args, "rinv")[1] or "kernel"
+                    # the route's times over the other's, per metric
+                    ratios = (k_ms / p_ms, k_call / p_call)
+                    if took != "kernel":
+                        ratios = tuple(1.0 / r for r in ratios)
+                    bad = min(ratios) > 1.0 + RULE_MARGIN
+                    _log(f"   rule {kind:8s} B={batch:4d} n=2^{lg}: device "
+                         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; per "
+                         f"call in a loop kernel {k_call:.4f} ms, plain "
+                         f"{p_call:.4f} ms -> two_loop takes the {took} "
+                         f"(its time over the other's: device "
+                         f"{ratios[0]:.2f}, per call {ratios[1]:.2f})"
+                         f"{'; LOSES ON BOTH' if bad else ''}")
+                    if bad:
+                        worst.append(("rule", kind, batch, lg, ratios))
+                    del args
+                torch.cuda.empty_cache()
+        if worst:
+            raise AssertionError(f"bf16 kernel disagrees with plain: {worst}")
+
+    def bf16_timing():
+        """At the main shape on phase 4's state, in turns (f32, bf16 rows,
+        bf16, bf16, bf16 rows, f32), beside the bound."""
+        res = main_state["res"]
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        base = kernel_args(res.history, res.grad.contiguous())
+        variants = {"f32": base, "bf16rows": bf16_args(base, torch.float32),
+                    "bf16": bf16_args(base, bf16)}
+        for mode in ("rinv", "sweeps"):
+            times = collections.defaultdict(list)
+            for kind in ("f32", "bf16rows", "bf16", "bf16", "bf16rows",
+                         "f32"):
+                args = variants[kind]
+                times[kind].append(median_ms_of(
+                    torch, lambda: fused.two_loop(*args, -1.0, mode), flush))
+            for kind in ("bf16rows", "bf16"):
+                args = variants[kind]
+                row = time_vs_bound(torch, fused, args, mode, flush)
+                k_ms = float(np.mean(times[kind]))
+                f_ms = float(np.mean(times["f32"]))
+                _log(f"   two_loop {mode:6s} B={MAIN_BATCH} m={MAIN_M} "
+                     f"n={MAIN_N} {kind:8s}: kernel {k_ms:.4f} ms (turns "
+                     f"{' '.join(f'{t:.4f}' for t in times[kind])}; "
+                     f"{row['bound_ms'] / k_ms:.1%} of bound), f32 rows "
+                     f"{f_ms:.4f} ms; plain {row['plain_ms']:.4f} ms; bound "
+                     f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+                     f"({row['mbytes']:.1f} MB)")
+                if mode == "rinv":
+                    smoke.kernel_rows.update({
+                        f"{kind}_ms": k_ms,
+                        f"{kind}_plain_ms": row["plain_ms"],
+                        f"{kind}_bound_ms": row["bound_ms"],
+                        f"{kind}_bound_by": row["bound_by"]})
+                else:
+                    smoke.kernel_rows[f"{kind}_sweeps_ms"] = k_ms
+
+    smoke.phase("the kernel's bf16 modes against plain, and the plain "
+                "routes", bf16_kernel)
+    if "res" in main_state:
+        smoke.phase("the kernel's bf16 modes' time at the main shape",
+                    bf16_timing)
+
+    # 19 --------------------------------------------------------------
+    def bf16_main_phase():
+        """Phase 4's main phase through lbfgs.minimize with f32 rows and
+        with bf16 rows, in turns; then everything in bf16."""
+        def solve(rows):
+            return lt.minimize(objectives.rosenbrock, x0s, params,
+                               direction="rinv", on_ls_fail="restart",
+                               history_dtype=rows, device=dev)
+
+        solve(bf16)                                  # warm-up
+        for rows in (None, bf16, bf16, None):
+            fused.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve(rows)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            kind = "bf16rows" if rows is not None else "f32"
+            executed = int(res.niter.max())
+            err = (res.x.double() - 1.0).abs().max(dim=1).values
+            _log(f"   {kind:8s} rows: {secs:.3f} s = {MAIN_BATCH / secs:.1f} "
+                 f"solves/s; iterations {int(res.niter.min())}..{executed};"
+                 f" launches {dict(fused.two_loop.kind_launches)}, plain "
+                 f"routes {fused.two_loop.plain_routes}; "
+                 f"frac_within_1e-3={(err <= 1e-3).double().mean().item():.4f}"
+                 f" frac_within_1e-4={(err <= 1e-4).double().mean().item():.4f}")
+            if not torch.isfinite(res.x).all():
+                raise AssertionError(f"{kind} rows: non-finite x")
+            if fused.two_loop.kind_launches[kind] != executed or \
+                    fused.two_loop.launches != executed or \
+                    fused.two_loop.plain_routes:
+                raise AssertionError(f"{kind} rows: launches "
+                                     f"{dict(fused.two_loop.kind_launches)}"
+                                     f" != batched iterations {executed}")
+            if rows is not None:
+                if res.history.s.dtype != bf16:
+                    raise AssertionError("the rows are not stored in bf16")
+                bf16_state["bf16rows launches"] = executed
+        # everything in bf16: x0, rows and operands (the Pallas mode, sweeps)
+        p16 = lt.LBFGSParams(epsilon=0.125, max_iterations=MAIN_ITERS,
+                             m=MAIN_M, max_linesearch=2)
+        fused.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.minimize(objectives.rosenbrock, x0s.to(bf16), p16,
+                          direction="sweeps", on_ls_fail="restart",
+                          device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        executed = int(res.niter.max())
+        err = (res.x.double() - 1.0).abs().max(dim=1).values
+        _log(f"   all bf16 (sweeps, epsilon 0.125): {secs:.3f} s = "
+             f"{MAIN_BATCH / secs:.1f} solves/s; iterations "
+             f"{int(res.niter.min())}..{executed}; launches "
+             f"{dict(fused.two_loop.kind_launches)}, plain routes "
+             f"{fused.two_loop.plain_routes}; max|x - 1| < 0.2 (the bar of "
+             f"tests/test_dtypes.py:25-31) for "
+             f"{(err < 0.2).double().mean().item():.4f} of the instances "
+             f"(stated, not gated); median max|x - 1| "
+             f"{err.median().item():.4f}; statuses "
+             f"{dict(sorted(collections.Counter(res.status.tolist()).items()))}")
+        if res.x.dtype != bf16 or not torch.isfinite(res.x).all():
+            raise AssertionError("all bf16: x not finite bf16")
+        if fused.two_loop.kind_launches["bf16"] != executed or \
+                fused.two_loop.plain_routes:
+            raise AssertionError("all bf16: launches != batched iterations")
+        bf16_state["bf16 launches"] = executed
+
+    smoke.phase("a bf16-row main phase at full width", bf16_main_phase)
+
+    # 20 --------------------------------------------------------------
+    def largest_n():
+        """scripts/bench_largest_n.py's plain path: one rosenbrock_split
+        solve at n = 2^27, f32, m=6, epsilon=0, for 6 and 16 iterations,
+        differenced; bf16 rows, then f32 rows."""
+        m, k1, k2 = 6, 6, 16
+        n = LARGEST_N
+        x0 = 2.0 * torch.rand(n, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev) - 1.0
+        # bytes one iteration must move (scripts/bench_largest_n.py:126-133):
+        # the two passes of the direction over s and y, the Grams' read
+        # and the ring write, ~10 vectors of f32
+        for rows, size in ((bf16, 2), (None, 4)):
+            secs = {}
+            for k in (k1, k2):
+                p = lt.LBFGSParams(epsilon=0.0, epsilon_rel=0.0,
+                                   max_iterations=k, m=m)
+                fused.reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = lt.minimize(objectives.rosenbrock_split, x0, p,
+                                  history_dtype=rows, device=dev)
+                torch.cuda.synchronize()
+                secs[k] = time.perf_counter() - t0
+                if int(res.niter) != k or not bool(torch.isfinite(
+                        res.fx)):
+                    raise AssertionError(f"n=2^27: niter {int(res.niter)}, "
+                                         f"fx {float(res.fx)}")
+                del res
+            per_iter = (secs[k2] - secs[k1]) / (k2 - k1)
+            total = 2 * (2 * m) * n * size + (2 * m) * n * size + \
+                4 * n * 4 + 10 * n * 4
+            peak = torch.cuda.max_memory_allocated()
+            label = "bf16" if rows is not None else "f32"
+            _log(f"   n=2^27 {label} rows: {secs[k1]:.3f} s for {k1} and "
+                 f"{secs[k2]:.3f} s for {k2} iterations -> "
+                 f"{per_iter:.4f} s/iteration; ~{total / 1e9:.2f} GB per "
+                 f"iteration = {total / per_iter / main_state.get('bandwidth', HBM_BYTES_PER_S):.1%} "
+                 f"of the measured bandwidth; peak memory "
+                 f"{peak / 1e9:.2f} GB; the direction took the plain route "
+                 f"{dict(fused.two_loop.plain_reasons)}, kernel launches "
+                 f"{fused.two_loop.launches}")
+            torch.cuda.empty_cache()
+
+    smoke.phase("the largest-n solve (n = 2^27)", largest_n)
+
+    # 21 --------------------------------------------------------------
+    def bf16_families_and_front_ends():
+        import tempfile
+        from lbfgspp_tpu_torch import optax_compat, owlqn, scipy_compat
+        from lbfgspp_tpu_torch.utils import checkpoint
+        # phase 15's lasso, bf16 rows
+        owlqn.COUNTS.clear()
+        fused.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.minimize_owlqn(lasso_loss, torch.zeros_like(owl_w), OWL_LAM,
+                                owl_params, data=owl_data,
+                                history_dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        a64, b64 = owl_a.double(), owl_b.double()
+        x = res.x.double()
+        r = (a64 @ x[:, :, None])[:, :, 0] - b64
+        g = (a64.transpose(1, 2) @ r[:, :, None])[:, :, 0]
+        kkt = owlqn.pseudo_gradient(x, g, OWL_LAM).abs().amax(1)
+        iters = owlqn.COUNTS["iterations"]
+        _log(f"   lasso B={OWL_BATCH}, bf16 rows: {secs:.3f} s = "
+             f"{OWL_BATCH / secs:.1f} solves/s; niter p50 "
+             f"{res.niter.double().median().item():.0f} max "
+             f"{int(res.niter.max())}; f64 KKT violation p50 "
+             f"{kkt.median().item():.3e} max {kkt.max().item():.3e}; "
+             f"launches {dict(fused.two_loop.kind_launches)} for {iters} "
+             f"batched iterations")
+        if res.history.s.dtype != bf16 or not torch.isfinite(res.x).all() \
+                or fused.two_loop.kind_launches["bf16rows"] != iters:
+            raise AssertionError("lasso with bf16 rows")
+        # phase 16's stochastic run, bf16 rows
+        data = logreg_data(STOCH_ROWS, STOCH_DIM, torch.float32, 1, dev)
+        fused.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.minimize_stochastic(
+            logreg_loss, torch.zeros(STOCH_DIM, device=dev), data,
+            lt.LBFGSParams(m=STOCH_M, max_iterations=STOCH_STEPS),
+            batch_size=STOCH_BATCH, overlap_frac=0.25, step_size=0.5,
+            history_dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        f1 = logreg_loss(res.x, data).item()
+        _log(f"   stochastic, bf16 rows: {secs:.3f} s = "
+             f"{STOCH_STEPS / secs:.1f} iterations/s; full-data loss "
+             f"{f1:.6f} (limit {0.25 * math.log(2):.6f}); nskip "
+             f"{int(res.nskip)}; launches "
+             f"{dict(fused.two_loop.kind_launches)}")
+        if res.history.s.dtype != bf16 or not f1 <= 0.25 * math.log(2) or \
+                fused.two_loop.kind_launches["bf16rows"] != STOCH_STEPS:
+            raise AssertionError("stochastic with bf16 rows")
+        # scipy_compat: one solve; x stays on the card
+        out = scipy_compat.minimize(
+            objectives.rosenbrock, torch.full((MAIN_N,), -1.2,
+                                              dtype=torch.float64,
+                                              device=dev),
+            options={"gtol": 1e-8, "maxiter": 1000}, device=dev)
+        err = (out.x - 1.0).abs().max().item()
+        _log(f"   scipy_compat.minimize, Rosenbrock n={MAIN_N} f64: nit "
+             f"{out.nit}, nfev {out.nfev}, success {out.success} "
+             f"({out.message}), x on {out.x.device}, max|x - 1| {err:.3e}")
+        if not (out.success and out.x.device.type == "cuda" and err < 1e-6):
+            raise AssertionError("scipy_compat.minimize")
+        # optax_compat: 20 optimizer steps of a small regression model
+        gen = torch.Generator(device=dev).manual_seed(4)
+        feats = torch.randn(512, 16, generator=gen, device=dev)
+        target = torch.tanh(feats @ torch.randn(16, 1, generator=gen,
+                                                device=dev))
+        model = torch.nn.Sequential(torch.nn.Linear(16, 32),
+                                    torch.nn.Tanh(),
+                                    torch.nn.Linear(32, 1)).to(dev)
+        opt = optax_compat.LBFGS(model.parameters(),
+                                 lt.LBFGSParams(m=8), history_dtype=bf16)
+
+        def closure():
+            opt.zero_grad()
+            loss = ((model(feats) - target) ** 2).mean()
+            loss.backward()
+            return loss
+
+        first = closure().item()
+        for _ in range(20):
+            opt.step(closure)
+        last = closure().item()
+        _log(f"   optax_compat.LBFGS, bf16 rows, 20 steps of an MLP "
+             f"(16-32-1): loss {first:.6f} -> {last:.6f}; niter "
+             f"{int(optax_compat.niter(opt))}, status "
+             f"{int(optax_compat.status(opt))}")
+        if not (math.isfinite(last) and last < 0.5 * first):
+            raise AssertionError("optax_compat did not train")
+        # checkpoint: a card state (bf16 rows) saved, restored, resumed
+        s = lt.solver(objectives.rosenbrock, params, direction="rinv",
+                      history_dtype=bf16, device=dev)
+        state = s.init(x0s[:256])
+        for _ in range(5):
+            state = s.step(state)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.npz")
+            checkpoint.save_state(path, state)
+            back = checkpoint.load_state(path, s.init(x0s[:256]))
+        a = s.finalize(s.run_fixed(state, 10))
+        b = s.finalize(s.run_fixed(back, 10))
+        same = torch.equal(a.x, b.x) and torch.equal(a.niter, b.niter)
+        _log(f"   checkpoint of a card state (B=256, bf16 rows, after 5 "
+             f"steps): restored on {back.x.device}, rows {back.hist.s.dtype},"
+             f" 10 more steps bit-identical: {same}")
+        if not same:
+            raise AssertionError("a restored state did not resume exactly")
+
+    smoke.phase("bf16 rows on the lasso and stochastic paths; the interop "
+                "front ends", bf16_families_and_front_ends)
+
     if smoke.failures:
         _log("FAILED: " + ", ".join(smoke.failures))
         return 1
@@ -1702,8 +2208,29 @@ def main() -> int:
     kernel["owlqn_polish_launches"] = owl_state["c launches"]
     kernel["stochastic_launches"] = stoch_state["launches"]
     kernel["implicit_launches"] = imp_state["launches"]
+    # The bf16 instantiations of the same kernel (phases 18-19): launches
+    # on their main paths (the bf16-row main phase, the all-bf16 run),
+    # error and times at the main shape in rinv mode.
+    modes = []
+    for kind, what in (("bf16rows", "bf16 rows, f32 operands"),
+                       ("bf16", "all bf16, the Pallas kernel's bf16 mode")):
+        modes.append({
+            "name": f"two_loop_{kind}",
+            "route": "cuda",
+            "source": "lbfgspp_tpu_torch/csrc/two_loop.cu",
+            "replaces": "lbfgspp_tpu/ops/fused.py:111",
+            "launches": bf16_state[f"{kind} launches"],
+            "max_abs_err": rows[f"{kind}_max_abs_err"],
+            "ms": rows[f"{kind}_ms"],
+            "plain_ms": rows[f"{kind}_plain_ms"],
+            "bound_ms": rows[f"{kind}_bound_ms"],
+            "bound_by": rows[f"{kind}_bound_by"],
+            "library_ms": None,
+            "types": what,
+            "sweeps_ms": rows[f"{kind}_sweeps_ms"],
+        })
     print(card_line())
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + modes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,11 +3,15 @@
 A second package beside the JAX one, for an NVIDIA H100: L-BFGS, the
 box-constrained L-BFGS-B and the L1-regularized OWL-QN, batched, with
 their df64 polish phases; multi-batch stochastic L-BFGS; implicit
-differentiation of solves; and a front end for parameter trees.  Solver
+differentiation of solves; a front end for parameter trees; and the
+interop front ends ``optax_compat`` (a ``torch.optim.Optimizer``),
+``scipy_compat``, ``utils.checkpoint`` and ``utils.trace``.  Solver
 states are batch-explicit (a leading batch axis; a single solve is a batch
 of one), and the two-loop direction of a batched solve runs in a
 hand-written CUDA kernel
-(``csrc/two_loop.cu``), built with nvcc on first use.  Entry points run on
+(``csrc/two_loop.cu``: f32, f64, bf16, or bf16 history rows beside f32,
+``history_dtype=torch.bfloat16``), built with nvcc on first use.  Entry
+points run on
 the CUDA card unless the caller passes ``device="cpu"``.
 """
 

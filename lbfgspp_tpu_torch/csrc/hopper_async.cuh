@@ -58,12 +58,10 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
+// granule: 4 or 8 bytes.
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
                                          int granule) {
-  if (granule == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src) : "memory");
-  } else if (granule == 8) {
+  if (granule == 8) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
                  "l"(src) : "memory");
   } else {

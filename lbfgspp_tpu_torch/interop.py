@@ -5,7 +5,10 @@ The functions here take a JAX ``LBFGSHistory``, ``LBFGSState`` or
 ``jax.tree.map(np.asarray, state)``) and return the port's batched
 tensors.  A single solve's state gets a batch axis of 1; a batch (a state
 of ``vmap``, leading axis B) keeps its axis.  Only field names are read, so
-nothing of the JAX package is imported.
+nothing of the JAX package is imported.  A history whose rows are stored
+in bfloat16 (``history_dtype``) arrives as numpy arrays of the ``ml_dtypes``
+bfloat16 type (or of any 2-byte type holding its bits) and becomes
+``torch.bfloat16`` bit for bit.
 """
 
 from __future__ import annotations
@@ -20,13 +23,25 @@ from .types import SolveResult, resolve_device
 _INT_FIELDS = ("ncorr", "ptr", "k", "niter", "nfev", "status")
 
 
+def as_tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (``ml_dtypes``' type,
+    which torch does not read) goes by its bits, as does any other 2-byte
+    array that ``dtype=torch.bfloat16`` asks for."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16" or (dtype == torch.bfloat16
+                                       and a.dtype.itemsize == 2):
+        bits = torch.from_numpy(a.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device, dtype=dtype)
+
+
 def _tensor(name: str, value, batched: bool, device) -> torch.Tensor:
     a = np.array(value)         # a writable copy
     if not batched:
         a = a[None]
     if name in _INT_FIELDS:
         a = a.astype(np.int32)
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return as_tensor(a, device)
 
 
 def history_from_numpy(hist, device=None) -> LBFGSHistory:

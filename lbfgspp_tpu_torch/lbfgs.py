@@ -90,6 +90,7 @@ def solver(fun: Optional[Callable] = None,
            line_search="nocedalwright",
            direction: str = "sweeps",
            on_ls_fail: str = "stop",
+           history_dtype=None,
            device=None) -> Solver:
     """Build the batched L-BFGS ``init/step/run/run_fixed/finalize``.
 
@@ -107,6 +108,13 @@ def solver(fun: Optional[Callable] = None,
     continues from steepest descent (needs a finite
     ``params.max_iterations``).
 
+    ``history_dtype`` (such as ``torch.bfloat16``) stores the (s, y)
+    correction rows at reduced precision while every reduction stays in
+    the solve's dtype (lbfgspp_tpu/lbfgs.py:107-111): it halves the bytes
+    of the per-iteration row streams, and the gate, theta and Grams still
+    use the exact pair.  On the card a float32 solve with bf16 rows runs
+    the kernel's bf16-row instantiation.
+
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run on
     the CPU.
 
@@ -116,12 +124,14 @@ def solver(fun: Optional[Callable] = None,
     """
     return _build_solver(make_fun_and_grad(fun, fun_and_grad), params,
                          line_search=line_search, direction=direction,
-                         on_ls_fail=on_ls_fail, device=device)
+                         on_ls_fail=on_ls_fail, history_dtype=history_dtype,
+                         device=device)
 
 
 def _build_solver(fg, params: LBFGSParams, *,
                   line_search="nocedalwright", direction: str = "sweeps",
-                  on_ls_fail: str = "stop", device=None) -> Solver:
+                  on_ls_fail: str = "stop", history_dtype=None,
+                  device=None) -> Solver:
     """:func:`solver` on a ready batched oracle ``fg(x [B, n]) -> (fx [B],
     grad [B, n])``, such as a pair-space oracle of
     :mod:`.utils.doublefloat`."""
@@ -165,6 +175,7 @@ def _build_solver(fg, params: LBFGSParams, *,
             k=i32_like(1, fx0), x=x0, fx=fx0, grad=grad0, gnorm=gnorm0,
             drt=drt0, step=1.0 / _norm(drt0),
             hist=hist_ops.init_history(batch, n, params.m, x0.dtype,
+                                       store_dtype=history_dtype,
                                        device=device,
                                        with_rinv=direction == "rinv"),
             fx_ring=fx_ring, done=early,
@@ -292,6 +303,7 @@ def minimize(fun: Optional[Callable] = None,
              line_search="nocedalwright",
              direction: str = "sweeps",
              on_ls_fail: str = "stop",
+             history_dtype=None,
              device=None) -> SolveResult:
     """Minimize ``fun`` from ``x0`` with L-BFGS (LBFGS.h:79-173).
 
@@ -304,7 +316,8 @@ def minimize(fun: Optional[Callable] = None,
         raise ValueError("x0 is required")
     s = solver(fun, params, fun_and_grad=fun_and_grad,
                line_search=line_search, direction=direction,
-               on_ls_fail=on_ls_fail, device=device)
+               on_ls_fail=on_ls_fail, history_dtype=history_dtype,
+               device=device)
     single = torch.as_tensor(x0).dim() == 1
     res = s.finalize(s.run(s.init(x0)))
     return unbatch(res) if single else res

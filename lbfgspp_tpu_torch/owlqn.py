@@ -128,12 +128,9 @@ def minimize_owlqn(fun: Optional[Callable] = None,
 
     Returns a :class:`~.types.SolveResult`: ``fx`` is the full objective,
     ``grad`` the loss gradient, ``gnorm`` the pseudo-gradient norm;
-    coordinates at zero are exact zeros.  ``history_dtype`` (reduced
-    precision history storage) is not in the port yet.
+    coordinates at zero are exact zeros.  ``history_dtype`` stores the
+    (s, y) rows at reduced precision (as :func:`.lbfgs.solver` does).
     """
-    if history_dtype is not None:
-        raise NotImplementedError("minimize_owlqn(history_dtype=...) lands "
-                                  "in a later slice of the port")
     if x0 is None:
         raise ValueError("x0 is required")
     if fun_and_grad is None and fun is None:
@@ -145,18 +142,20 @@ def minimize_owlqn(fun: Optional[Callable] = None,
                           device=device).expand(x0.shape)
     fg = data_fun_and_grad(fun, fun_and_grad, data)
     if fast_phase_epsilon is None:
-        res = _solve(fg, x0, lam, params)
+        res = _solve(fg, x0, lam, params, history_dtype)
     else:
         coarse = dataclasses.replace(
             params, epsilon=max(params.epsilon, float(fast_phase_epsilon)))
-        r1 = _solve(_with_tf32(fg, True), x0, lam, coarse)
-        r2 = _solve(_with_tf32(fg, False), r1.x, lam, params)
+        r1 = _solve(_with_tf32(fg, True), x0, lam, coarse, history_dtype)
+        r2 = _solve(_with_tf32(fg, False), r1.x, lam, params, history_dtype)
         res = r2._replace(niter=r1.niter + r2.niter, nfev=r1.nfev + r2.nfev)
     return unbatch(res) if single else res
 
 
-def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams) -> SolveResult:
-    """One OWL-QN run of the batched oracle ``fg`` from ``x0 [B, n]``."""
+def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams,
+           history_dtype=None) -> SolveResult:
+    """One OWL-QN run of the batched oracle ``fg`` from ``x0 [B, n]``;
+    ``history_dtype``: the rows' storage dtype."""
     batch, n = x0.shape
     dtype, device = x0.dtype, x0.device
     penalized = lam > 0
@@ -185,6 +184,7 @@ def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams) -> SolveResult:
             k=i32_like(1, fx0), x=x0, fx=fx0, grad=g0, pgrad=pg0,
             gnorm=gnorm0,
             hist=hist_ops.init_history(batch, n, params.m, dtype,
+                                       store_dtype=history_dtype,
                                        device=device),
             fx_ring=fx_ring, done=early,
             status=torch.where(early, i32_like(Status.CONVERGED_GRAD, fx0),

@@ -8,12 +8,15 @@ carries ``x`` and ``grad`` unraveled back to the input structure.
 
 Mixed-dtype trees follow ``jax.flatten_util.ravel_pytree``: the flat
 vector has the leaves' promoted dtype and ``unravel`` casts every leaf
-back to its own.  Leaves come in ``torch.utils._pytree``'s order, a
-dict's in insertion order (JAX sorts a dict's keys).
+back to its own.  Leaves come in JAX's order: a dict's by sorted key
+(an ``OrderedDict`` keeps its own order), so a gradient or bound tree
+built in another key order ravels against the same coordinates as
+``x0``, and ``unravel`` returns dicts with sorted keys, as JAX does.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Any, Callable, Optional, Tuple
 
@@ -27,12 +30,30 @@ from .types import SolveResult
 Tensor = torch.Tensor
 
 
+def _sorted_keys(tree: Any) -> Any:
+    """``tree`` with every plain dict (and defaultdict) rebuilt in sorted
+    key order, through lists, tuples, named tuples and ordered dicts: the
+    order in which JAX flattens a tree."""
+    if isinstance(tree, dict):
+        keys = list(tree) if isinstance(tree, collections.OrderedDict) \
+            else sorted(tree)
+        out = {k: _sorted_keys(tree[k]) for k in keys}
+        if isinstance(tree, collections.defaultdict):
+            return collections.defaultdict(tree.default_factory, out)
+        return type(tree)(out) if type(tree) is not dict else out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_sorted_keys(t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_sorted_keys(t) for t in tree)
+    return tree
+
+
 def ravel_pytree(tree: Any) -> Tuple[Tensor, Callable[[Tensor], Any]]:
-    """``(flat, unravel)``: the leaves of ``tree`` concatenated into one
-    1-D tensor of their promoted dtype, and the function that maps such a
-    vector back to the tree (each leaf reshaped and cast to its own
-    dtype)."""
-    leaves, spec = pytree.tree_flatten(tree)
+    """``(flat, unravel)``: the leaves of ``tree`` in JAX's order (a
+    dict's by sorted key) concatenated into one 1-D tensor of their
+    promoted dtype, and the function that maps such a vector back to the
+    tree (each leaf reshaped and cast to its own dtype)."""
+    leaves, spec = pytree.tree_flatten(_sorted_keys(tree))
     leaves = [torch.as_tensor(leaf) for leaf in leaves]
     if leaves:
         dtype = functools.reduce(torch.promote_types,
@@ -56,7 +77,7 @@ def ravel_pytree(tree: Any) -> Tuple[Tensor, Callable[[Tensor], Any]]:
 def _flat_objective(fun, fun_and_grad, unravel):
     """The objective on the flat vector; an explicit ``fun_and_grad``
     returns a gradient tree of ``x0``'s structure, raveled in the same
-    leaf order."""
+    leaf order (a dict's by key, whatever order it was built in)."""
     if fun_and_grad is not None:
         def fg_flat(z):
             fx, g_tree = fun_and_grad(unravel(z))
@@ -83,23 +104,24 @@ def minimize_pytree(fun: Optional[Callable] = None,
     (lbfgspp_tpu/pytree.py:62-83): :func:`.lbfgs.minimize` of ``fun``
     composed with ``unravel``.  ``x``/``grad`` of the result have ``x0``'s
     structure; ``fx``, ``gnorm``, ``niter``, ``status`` and the (flat)
-    ``history`` are the flat solve's."""
-    if history_dtype is not None:
-        raise NotImplementedError("history_dtype lands in a later slice of "
-                                  "the port")
+    ``history`` are the flat solve's.  ``history_dtype`` stores the
+    flat history's rows at reduced precision (:func:`.lbfgs.solver`)."""
     flat0, unravel = ravel_pytree(x0)
     f_flat, fg_flat = _flat_objective(fun, fun_and_grad, unravel)
     res = lbfgs.minimize(f_flat, flat0, params, fun_and_grad=fg_flat,
-                         line_search=line_search, device=device)
+                         line_search=line_search,
+                         history_dtype=history_dtype, device=device)
     return _unravel_result(res, unravel)
 
 
 def _ravel_bound(bound, x0, flat0: Tensor, side: str) -> Tensor:
     """A bound given as a tree matching ``x0`` (leaves broadcast to their
-    parameter leaf), a scalar, or None (unbounded), raveled."""
+    parameter leaf; a dict's matched by key), a scalar, or None
+    (unbounded), raveled."""
     if bound is None:
         fill = -torch.inf if side == "lb" else torch.inf
         return torch.full(flat0.shape, fill, dtype=flat0.dtype)
+    x0, bound = _sorted_keys(x0), _sorted_keys(bound)
     treedef = pytree.tree_structure(x0)
     if pytree.tree_structure(bound) == treedef:
         leaves = pytree.tree_leaves(x0)

@@ -83,7 +83,8 @@ def minimize_stochastic(fun: Callable,
     every step is ``x + step_size d``, kept only if the new loss is
     finite.  ``generator``: a ``torch.Generator`` that shuffles the sample
     order once (on its own device); None keeps the given order.  The
-    same order is cycled.
+    same order is cycled.  ``history_dtype``: the (s, y) rows' storage
+    dtype (reduced precision, as :func:`.lbfgs.solver` takes it).
 
     Returns a :class:`StochasticResult` of one solve (no batch axis):
     ``x``/``grad`` in ``x0``'s structure, ``fx``/``grad``/``gnorm`` of
@@ -91,9 +92,6 @@ def minimize_stochastic(fun: Callable,
     ``nfev`` the evaluations made.  A step whose search fails keeps ``x``
     and the history, and counts in ``nskip``.
     """
-    if history_dtype is not None:
-        raise NotImplementedError("history_dtype lands in a later slice of "
-                                  "the port")
     if params.max_iterations <= 0:
         raise ValueError("stochastic mode needs params.max_iterations > 0 "
                          "(a fixed step schedule)")
@@ -137,7 +135,7 @@ def minimize_stochastic(fun: Callable,
 
     search = get_line_search(line_search)
     hist = hist_ops.init_history(1, x.shape[1], params.m, dtype,
-                                 device=device)
+                                 store_dtype=history_dtype, device=device)
     nfev = torch.zeros(1, dtype=torch.int32, device=device)
     nskip = torch.zeros(1, dtype=torch.int32, device=device)
     fx1 = torch.zeros(1, dtype=dtype, device=device)

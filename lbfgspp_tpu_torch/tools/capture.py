@@ -25,8 +25,7 @@ def capture_calls(run: Callable[[], object], every: int = 1) -> List[Tuple]:
         seen[0] += 1
         return real(*args)
 
-    keep.launches = 0
-    fused.two_loop = keep
+    fused.two_loop = fused.with_counts(keep)
     try:
         run()
     finally:

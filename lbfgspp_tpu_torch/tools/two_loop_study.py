@@ -5,6 +5,7 @@
         [--kernels two_loop,two_loop_simple,two_loop_plain] [--seeds 0-9]
     python3 -m lbfgspp_tpu_torch.tools.two_loop_study --part ab \
         --other OTHER_TREE [--rounds R]
+    python3 -m lbfgspp_tpu_torch.tools.two_loop_study --part route|chunk
 
 ``plans``: where rows should stop being staged.  At B=4096, m=16 and a
 range of n in f32 and f64, every launch layout that fits a block (1-8
@@ -47,6 +48,21 @@ in turns (other, this, this, other; ``--rounds`` times at the main shape
 in ``rinv`` f32, once at the other shapes), each a median of 25 launches
 with the L2 flushed before each.
 
+``route``: where ``fused.route`` should send rows longer than
+``fused.LARGE_N``.  For every instantiation (f32, f64, bf16 rows beside
+f32, all bf16), ``rinv``, m=6, full rings of random rows, at B = 1 to
+2112 and n = 2^14 to 2^17, the kernel (launched with its own plan) and
+the plain version are checked against each other and timed two ways:
+device time (CUDA events, median of 25 launches, the L2 flushed) and the
+time a solver's loop pays per call (host clock over 25 calls in a row),
+beside the route ``fused.two_loop`` takes.
+
+``chunk``: the largest-n solve of ``chip_smoke.py`` phase 20 (n = 2^27,
+f32, m=6, epsilon=0, 6 and 16 iterations differenced) with bf16 rows
+under several sizes of the plain version's widened chunk
+(``fused.PLAIN_CHUNK_BYTES``), and with f32 rows, in turns; then one
+profiled iteration of each.
+
 Every part writes its results to ``chiprun_out/two_loop_study.json`` and
 prints the card's name and power limit.
 """
@@ -59,6 +75,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -136,8 +153,9 @@ def layouts(n, dtype, sms):
         for stages in (1, 2):
             for warps in range(1, fused.MAX_WARPS + 1):
                 try:
-                    yield fused._layout_plan(BATCH, M, n, dtype, sms, warps,
-                                             stages, staged)
+                    yield fused._layout_plan(BATCH, M, n,
+                                             fused.KINDS[dtype, dtype], sms,
+                                             warps, stages, staged)
                 except ValueError:
                     pass
 
@@ -228,9 +246,7 @@ def tracked(kernel, errors):
         ref = fused.two_loop_plain(*cast(tensors, torch.float64), a, mode)
         errors.append(rel_errors(out, ref))
         return out
-    # fused.two_loop counts its launches on whatever fused.two_loop is
-    call.launches = 0
-    return call
+    return fused.with_counts(call)
 
 
 def beyond(x, tol):
@@ -436,6 +452,173 @@ def study_ab(dev, other: str, rounds: int):
     return out
 
 
+# The dispatch rule's sweep: every instantiation, rinv, m=6.
+ROUTE_KINDS = {"f32": (torch.float32, torch.float32),
+               "f64": (torch.float64, torch.float64),
+               "bf16rows": (torch.bfloat16, torch.float32),
+               "bf16": (torch.bfloat16, torch.bfloat16)}
+ROUTE_BATCHES = (1, 8, 132, 264, 528, 1056, 2112)
+ROUTE_LOG_N = (14, 15, 16, 17)
+ROUTE_M = 6
+# The largest-n solve (chip_smoke.py phase 20) under each chunk size of
+# the plain version's widened bf16 rows, in bytes; 6 * 4 * 2^22 is the
+# first design's 2^22 columns at m=6.
+CHUNK_BYTES = (1 << 22, 1 << 24, 1 << 25, 1 << 27, 1 << 28, 1 << 29,
+               6 * 4 * (1 << 22))
+LARGEST_N, LARGEST_M, LARGEST_ITERS = 1 << 27, 6, (6, 16)
+
+
+def per_call_ms(fn, calls=TIMED_LAUNCHES) -> float:
+    """The time a solver's loop pays per call: host clock over ``calls``
+    calls in a row, then a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def synthetic(batch, n, m, row_dtype, dtype, seed, device):
+    """Random rows and well-scaled [m, m] operands made on the card, full
+    rings (a history of this size is not built pair by pair)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=device)
+    s = rand(batch, m, n).to(row_dtype)
+    y = rand(batch, m, n).to(row_dtype)
+    ys = (torch.rand(batch, m, generator=g, device=device) + 1.0).to(dtype)
+    mats = [rand(batch, m, m, scale=0.01).to(dtype) for _ in range(3)]
+    full = torch.full((batch,), m, dtype=torch.int32, device=device)
+    return (s, y, ys, torch.ones(batch, dtype=dtype, device=device), full,
+            full.clone(), *mats, rand(batch, n).to(dtype))
+
+
+def study_route(dev):
+    """Kernel (launched with its own plan) against the plain version at
+    every (B, n) of the sweep, for every instantiation: device time (CUDA
+    events, median of 25, the L2 flushed, the host held back) and the time
+    per call in a loop, beside the route ``fused.two_loop`` takes."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = []
+    for kind, (row_dtype, dtype) in ROUTE_KINDS.items():
+        for batch in ROUTE_BATCHES:
+            for lg in ROUTE_LOG_N:
+                args = synthetic(batch, 1 << lg, ROUTE_M, row_dtype, dtype,
+                                 seed=lg, device=dev)
+                plan = fused.plan_for(*args, "rinv")
+
+                def kernel():
+                    return fused._launch(plan, *args, -1.0, "rinv")
+
+                def plain():
+                    return fused.two_loop_plain(*args, -1.0, "rinv")
+                got, want = kernel().float(), plain().float()
+                err = ((got - want).abs().amax(1) /
+                       want.abs().amax(1).clamp_min(1e-30)).max().item()
+                row = dict(kind=kind, batch=batch, log_n=lg, err=err,
+                           kernel_ms=median_ms(kernel, flush),
+                           plain_ms=median_ms(plain, flush),
+                           kernel_call_ms=per_call_ms(kernel),
+                           plain_call_ms=per_call_ms(plain),
+                           route=fused.route(*args, "rinv")[1] or "kernel",
+                           warps=plan.warps, grid=plan.grid,
+                           staged=plan.staged)
+                rows.append(row)
+                print(f"   {kind:8s} B={batch:4d} n=2^{lg}: device kernel "
+                      f"{row['kernel_ms']:.4f} plain {row['plain_ms']:.4f} "
+                      f"ms; per call kernel {row['kernel_call_ms']:.4f} "
+                      f"plain {row['plain_call_ms']:.4f} ms; error "
+                      f"{err:.2e}; plan {plan.warps}x{plan.stages} grid "
+                      f"{plan.grid} staged {plan.staged}; route "
+                      f"{row['route']}", flush=True)
+                del args, got, want
+                torch.cuda.empty_cache()
+    return rows
+
+
+def study_chunk(dev, rounds: int):
+    """The largest-n solve (rosenbrock_split, n = 2^27, f32, m=6,
+    epsilon=0; 6 and 16 iterations, differenced) with bf16 rows under
+    each of CHUNK_BYTES and with f32 rows, in turns (forward then
+    backward), then one profiled iteration of each chunk size's bf16-row
+    solve (``torch.profiler``: the top device kernels)."""
+    x0 = 2.0 * torch.rand(LARGEST_N, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev) - 1.0
+    variants = [("bf16", b) for b in CHUNK_BYTES] + [("f32", None)]
+    default = fused.PLAIN_CHUNK_BYTES
+
+    def solve(rows, budget, iters):
+        fused.PLAIN_CHUNK_BYTES = budget or default
+        p = lt.LBFGSParams(epsilon=0.0, epsilon_rel=0.0,
+                           max_iterations=iters, m=LARGEST_M)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.minimize(objectives.rosenbrock_split, x0, p,
+                          history_dtype=torch.bfloat16 if rows == "bf16"
+                          else None, device=dev)
+        torch.cuda.synchronize()
+        if int(res.niter) != iters or not bool(torch.isfinite(res.fx)):
+            raise AssertionError(f"n=2^27: niter {int(res.niter)}")
+        return time.perf_counter() - t0
+
+    solve("bf16", None, 2)                             # warm-up
+    times = {v: [] for v in variants}
+    for r in range(rounds):
+        for v in (variants if r % 2 == 0 else variants[::-1]):
+            torch.cuda.reset_peak_memory_stats()
+            k1, k2 = LARGEST_ITERS
+            t1, t2 = solve(*v, k1), solve(*v, k2)
+            times[v].append(dict(s_per_iter=(t2 - t1) / (k2 - k1),
+                                 peak_gb=torch.cuda.max_memory_allocated()
+                                 / 1e9))
+            print(f"   round {r} {v[0]} rows, chunk {v[1]} B: "
+                  f"{times[v][-1]['s_per_iter']:.4f} s/iteration, peak "
+                  f"{times[v][-1]['peak_gb']:.2f} GB", flush=True)
+            torch.cuda.empty_cache()
+    out = []
+    for v, t in times.items():
+        med = float(np.median([x["s_per_iter"] for x in t]))
+        out.append(dict(rows=v[0], chunk_bytes=v[1], s_per_iter=med,
+                        turns=t))
+        print(f"   {v[0]} rows, chunk {v[1]} B: median {med:.4f} "
+              f"s/iteration over {len(t)} turns", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    for rows, budget in variants:
+        fused.PLAIN_CHUNK_BYTES = budget or default
+        s = lt.solver(objectives.rosenbrock_split,
+                      lt.LBFGSParams(epsilon=0.0, epsilon_rel=0.0,
+                                     max_iterations=100, m=LARGEST_M),
+                      history_dtype=torch.bfloat16 if rows == "bf16"
+                      else None, device=dev)
+        state = s.init(x0)
+        for _ in range(LARGEST_M + 1):
+            state = s.step(state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = s.step(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"   profile, one iteration, {rows} rows chunk {budget} B: "
+              f"host {wall * 1e3:.2f} ms, device busy {busy:.2f} ms in "
+              f"{sum(e.count for e in kernels)} launches; top kernels (ms, "
+              f"launches):", flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"      {e.self_device_time_total / 1e3:9.3f} "
+                  f"{e.count:5d}x  {e.key[:90]}", flush=True)
+        del s, state
+        torch.cuda.empty_cache()
+    fused.PLAIN_CHUNK_BYTES = default
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="two_loop,two_loop_simple,"
@@ -447,8 +630,10 @@ def main() -> int:
                     "the recipe's, LBFGSParams' default)")
     ap.add_argument("--other", help="ab: the root of the other checkout")
     ap.add_argument("--rounds", type=int, default=4,
-                    help="ab: rounds of turns at the main shape")
-    ap.add_argument("--part", choices=("plans", "quality", "all", "ab"),
+                    help="ab: rounds of turns at the main shape; chunk: "
+                    "rounds of turns")
+    ap.add_argument("--part", choices=("plans", "quality", "all", "ab",
+                                       "route", "chunk"),
                     default="all")
     opts = ap.parse_args()
     part = opts.part
@@ -469,6 +654,14 @@ def main() -> int:
         out["quality"] = study_quality(dev, opts.kernels.split(","),
                                        tuple(range(first, last + 1)),
                                        opts.polish_epsilon_rel)
+    if part == "route":
+        print("== the dispatch rule: kernel against plain by (B, n)",
+              flush=True)
+        out["route"] = study_route(dev)
+    if part == "chunk":
+        print("== the largest-n solve by the plain version's chunk size",
+              flush=True)
+        out["chunk"] = study_chunk(dev, opts.rounds)
     if part == "ab":
         if not opts.other:
             ap.error("--part ab needs --other")

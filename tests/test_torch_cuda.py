@@ -17,8 +17,13 @@ rows are staged at one warp per SM), the ragged tail of
 its persistent walk (B=4097), a history after the restart's soft reset,
 the solver families' shapes (B=1, m=8, n=256; B=1024, m=6, n=64 and its
 pair shape n=128), and the first design, ``fused.two_loop_simple``, kept
-as a yardstick.  OWL-QN runs on the card against the CPU, and its fast
-phase's TF32 scope is read inside the objective.
+as a yardstick.  The bf16 instantiations (all bf16; bf16 rows beside f32
+operands) are held against the plain version, and each plain route of
+``fused.route`` (m=200 f32, m=120 f64, f16, rows longer than
+``fused.LARGE_N`` in a small batch) is counted apart from the launches;
+long rows in a full batch launch the kernel.  OWL-QN runs on the card
+against the CPU, and its fast phase's TF32 scope is read inside the
+objective.
 """
 
 import functools
@@ -180,7 +185,8 @@ def test_simple_kernel_matches_plain_and_counts_apart(cuda, dtype, rtol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_plan_layout_agrees_with_the_kernel(cuda, m, n, dtype):
     lib = fused._library()
-    plan = fused.launch_plan(64, m, n, dtype, fused.num_sms(cuda))
+    plan = fused.launch_plan(64, m, n, fused.KINDS[dtype, dtype],
+                             fused.num_sms(cuda))
     assert lib.lbfgs_two_loop_smem_bytes(
         m, n, int(dtype == torch.float64), plan.warps, plan.stages,
         int(plan.staged)) == plan.smem_bytes
@@ -192,7 +198,7 @@ def test_forced_unstaged_plan_matches_plain(cuda, mode):
                  torch.float64)
     v = torch.as_tensor(np.random.default_rng(1).standard_normal((5, 24)),
                         device=cuda)
-    plan = fused._layout_plan(5, 6, 24, torch.float64, fused.num_sms(cuda),
+    plan = fused._layout_plan(5, 6, 24, "f64", fused.num_sms(cuda),
                               2, 2, False)
     got = fused._launch(plan, *_args(h, v), -1.0, mode)
     want = fused.two_loop_plain(*_args(h, v), -1.0, mode)
@@ -425,3 +431,162 @@ def test_owlqn_fast_phase_scopes_tf32_on_card(cuda):
     n1 = seen.index(False)
     assert n1 > 1 and all(seen[:n1]) and not any(seen[n1:])
     assert torch.isfinite(res.x).all()
+
+
+# ---------------------------------------------------------------------
+# The bf16 instantiations and the static plain routes.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_args(h, v, op):
+    """bf16 rows; every other operand (and v) in ``op``."""
+    return (h.s.to(BF16), h.y.to(BF16)) + tuple(
+        t.to(op) if t.is_floating_point() else t
+        for t in (h.ys, h.theta, h.ptr, h.ncorr, h.sy, h.yy, h.rinv)) + \
+        (v.to(op),)
+
+
+@pytest.mark.parametrize("op", [BF16, torch.float32])
+@pytest.mark.parametrize("mode", ["sweeps", "rinv"])
+@pytest.mark.parametrize("batch,n,m,ncorrs", [
+    (5, 24, 6, (0, 6, 9, 2, 7)),
+    (3, 40, 1, (0, 1, 3)),                  # two-byte [m, m] runs in bf16
+    (6, 101, 16, (0, 3, 16, 20, 40, 9)),    # odd n: rows in memory
+    (4, 33, 33, (0, 5, 33, 70)),
+    (4096, 100, 16, tuple(range(4096))),    # the main path's shape
+])
+def test_bf16_kernel_matches_plain(cuda, op, mode, batch, n, m, ncorrs):
+    """bf16 rows beside f32 operands: against the plain version on the
+    same rows, 1e-5 of the largest output.  All bf16: against the plain
+    version computed in f32 from the same bf16 inputs, 2^-8 of each
+    instance's largest output (the kernel rounds its f32 result once)."""
+    h = _on_card(_cached_history(batch, n, m,
+                                 tuple(c % (3 * m) for c in ncorrs), m),
+                 cuda, torch.float64)
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal((batch, n)),
+                        device=cuda)
+    args = _bf16_args(h, v, op)
+    kind = fused.KINDS[BF16, op]
+    before = fused.two_loop.kind_launches[kind]
+    got = fused.two_loop(*args, -1.0, mode)
+    torch.cuda.synchronize()
+    assert fused.two_loop.kind_launches[kind] == before + 1
+    assert got.dtype == op
+    if op == BF16:
+        want = fused.two_loop_plain(*(t.float() if t is not None and
+                                      t.is_floating_point() else t
+                                      for t in args), -1.0, mode)
+        err = (got.float() - want).abs().amax(1) / \
+            want.abs().amax(1).clamp_min(1e-30)
+        assert err.max().item() <= 2.0 ** -8
+    else:
+        want = fused.two_loop_plain(*args, -1.0, mode)
+        assert (got - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("m", [16, 6])
+def test_bf16_plan_layout_agrees_with_the_kernel(cuda, m):
+    lib = fused._library()
+    for op in (BF16, torch.float32):
+        for n in (100, 101, 24):
+            plan = fused.launch_plan(64, m, n, fused.KINDS[BF16, op],
+                                     fused.num_sms(cuda))
+            assert lib.lbfgs_two_loop_smem_bytes(
+                m, n, list(fused.SIZES).index(plan.kind), plan.warps,
+                plan.stages, int(plan.staged)) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("case,reason", [
+    ("m=200 f32", "shared memory"),
+    ("m=120 f64", "shared memory"),
+    ("f16", "dtype"),
+    ("large n", "large n"),
+])
+def test_each_plain_route_is_counted_and_launches_nothing(cuda, case,
+                                                          reason):
+    batch, n, m, dtype = {"m=200 f32": (4, 100, 200, torch.float32),
+                          "m=120 f64": (4, 100, 120, torch.float64),
+                          "f16": (5, 24, 6, torch.float16),
+                          "large n": (1, fused.LARGE_N + 8, 6,
+                                      torch.float32)}[case]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    s = torch.randn(batch, m, n, generator=g, device=cuda).to(dtype)
+    y = s + 0.1 * torch.randn(batch, m, n, generator=g,
+                              device=cuda).to(dtype)
+    h = history.init_history(batch, n, m, dtype, device=cuda,
+                             with_rinv=True)
+    for k in range(3):
+        h, _ = history.update_history(h, s[:, k], y[:, k],
+                                      torch.ones(batch, dtype=torch.bool,
+                                                 device=cuda))
+    v = torch.randn(batch, n, generator=g, device=cuda).to(dtype)
+    launches, routes = fused.two_loop.launches, fused.two_loop.plain_routes
+    plan, why = fused.route(*_args(h, v), "rinv")
+    assert plan is None and why == reason
+    got = fused.two_loop(*_args(h, v), -1.0, "rinv")
+    want = fused.two_loop_plain(*_args(h, v), -1.0, "rinv")
+    torch.cuda.synchronize()
+    assert fused.two_loop.launches == launches
+    assert fused.two_loop.plain_routes == routes + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("row,op", [(torch.float32, torch.float32),
+                                    (BF16, torch.float32)])
+def test_long_rows_in_a_full_batch_launch_the_kernel(cuda, row, op):
+    """Rows longer than LARGE_N at each type's batch threshold
+    (LARGE_N_KERNEL_BATCH_PER_SM per SM) take the kernel, counted as a
+    launch, and agree with the plain version."""
+    per_sm = fused.LARGE_N_KERNEL_BATCH_PER_SM[fused.KINDS[row, op]]
+    batch, m, n = per_sm * fused.num_sms(cuda), 6, fused.LARGE_N + 8
+    g = torch.Generator(device=cuda).manual_seed(1)
+    s = torch.randn(batch, m, n, generator=g, device=cuda)
+    y = s + 0.1 * torch.randn(batch, m, n, generator=g, device=cuda)
+    full = torch.full((batch,), m, dtype=torch.int32, device=cuda)
+    mats = [0.01 * torch.randn(batch, m, m, generator=g, device=cuda)
+            for _ in range(3)]
+    args = (s.to(row), y.to(row),
+            torch.rand(batch, m, generator=g, device=cuda) + 1.0,
+            torch.ones(batch, device=cuda), full, full.clone(), *mats,
+            torch.randn(batch, n, generator=g, device=cuda))
+    plan, why = fused.route(*args, "rinv")
+    assert why is None and plan.kind == fused.KINDS[row, op]
+    launches, routes = fused.two_loop.launches, fused.two_loop.plain_routes
+    got = fused.two_loop(*args, -1.0, "rinv")
+    want = fused.two_loop_plain(*args, -1.0, "rinv")
+    torch.cuda.synchronize()
+    assert fused.two_loop.launches == launches + 1
+    assert fused.two_loop.plain_routes == routes
+    assert (got - want).abs().max().item() <= \
+        1e-4 * want.abs().max().item()
+
+
+def test_bf16_rows_solve_launches_its_kernel_once_per_iteration(cuda):
+    x0 = np.random.default_rng(0).uniform(-1.0, 1.0, (8, 10))
+    p = lt.LBFGSParams(epsilon=1e-4, max_iterations=300)
+    fused.reset_counts()
+    res = lt.minimize(objectives.rosenbrock,
+                      torch.as_tensor(x0, dtype=torch.float32), p,
+                      direction="rinv", history_dtype=BF16, device=cuda)
+    assert res.history.s.dtype == BF16
+    assert fused.two_loop.kind_launches["bf16rows"] == \
+        fused.two_loop.launches == int(res.niter.max())
+    assert fused.two_loop.plain_routes == 0
+    assert (res.x - 1.0).abs().max().item() <= 1e-2
+
+
+def test_captured_calls_launch_but_count_nothing(cuda):
+    """``tools.capture.capture_calls`` stands in for ``fused.two_loop``
+    during a solve: every call still goes through the dispatch and the
+    kernel, and none counts on the real wrapper."""
+    from lbfgspp_tpu_torch.tools.capture import capture_calls
+    x0 = torch.as_tensor(np.random.default_rng(2).uniform(-1, 1, (4, 10)),
+                         dtype=torch.float32, device=cuda)
+    fused.reset_counts()
+    calls = capture_calls(lambda: lt.minimize(
+        objectives.rosenbrock, x0, lt.LBFGSParams(max_iterations=5),
+        history_dtype=BF16, device=cuda))
+    assert len(calls) == 5 and calls[0][0].dtype == BF16
+    assert fused.two_loop.launches == 0 and fused.two_loop.plain_routes == 0

@@ -23,7 +23,7 @@ H100_SMS = 132
 @pytest.mark.parametrize("dtype,itemsize", [(torch.float32, 4),
                                             (torch.float64, 8)])
 def test_main_shape_takes_bulk_copies_within_a_block(dtype, itemsize):
-    plan = TF.launch_plan(4096, 16, 100, dtype, H100_SMS)
+    plan = TF.launch_plan(4096, 16, 100, TF.KINDS[dtype, dtype], H100_SMS)
     assert plan.smem_bytes <= TF.MAX_SMEM_BYTES == 232448
     assert set(plan.copy.values()) == {"bulk"} and plan.codes == 0
     assert plan.staged and plan.ld == 100
@@ -51,7 +51,8 @@ def test_unaligned_runs_take_cp_async(dtype, n, offsets, expect):
     base."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     addresses = {op: k * itemsize for op, k in offsets.items()}
-    plan = TF.launch_plan(64, 16, n, dtype, H100_SMS, addresses)
+    plan = TF.launch_plan(64, 16, n, TF.KINDS[dtype, dtype], H100_SMS,
+                          addresses)
     slow = {op for op, path in plan.copy.items() if path != "bulk"}
     assert slow == expect
     for op in slow:
@@ -62,9 +63,9 @@ def test_unaligned_runs_take_cp_async(dtype, n, offsets, expect):
 
 
 def test_copy_codes_pack_two_bits_per_operand():
-    plan = TF.launch_plan(8, 16, 101, torch.float32, H100_SMS,
+    plan = TF.launch_plan(8, 16, 101, "f32", H100_SMS,
                           {"mat": 4, "ys": 8})
-    paths = {0: "bulk", 1: "cp.async/4", 2: "cp.async/8", 3: "cp.async/16"}
+    paths = {0: "bulk", 1: "cp.async/4", 2: "cp.async/8", 3: "lanes/2"}
     unpacked = {op: paths[(plan.codes >> (2 * k)) & 3]
                 for k, op in enumerate(TF.OPERANDS)}
     assert unpacked == plan.copy
@@ -96,7 +97,7 @@ def test_odd_sizes_fit_or_fall_back(m, n, dtype, stages, staged):
     on an SM (8 warps at 4-byte granules, 4 at 8).  Past that, s, y and v
     stay in device memory, and past one stage of two warps, one stage;
     the limit on m is then the [m, m] operands alone."""
-    plan = TF.launch_plan(4096, m, n, dtype, H100_SMS)
+    plan = TF.launch_plan(4096, m, n, TF.KINDS[dtype, dtype], H100_SMS)
     assert plan.smem_bytes <= TF.MAX_SMEM_BYTES
     assert (plan.stages, plan.staged) == (stages, staged)
     if staged and plan.copy["s"] != "bulk":
@@ -111,25 +112,26 @@ def test_odd_sizes_fit_or_fall_back(m, n, dtype, stages, staged):
 def test_below_four_warps_per_sm_more_warps_beat_more_stages():
     """At f32 n=600 one warp with two stages and two warps with one stage
     hold the same buffers per SM; the plan takes the two warps."""
-    plan = TF.launch_plan(4096, 16, 600, torch.float32, H100_SMS)
+    plan = TF.launch_plan(4096, 16, 600, "f32", H100_SMS)
     assert (plan.warps * plan.blocks_per_sm, plan.stages) == (2, 1)
     # an unaligned view sends the rows by cp.async: unstaged at 2 warps/SM
-    assert not TF.launch_plan(4096, 16, 600, torch.float32, H100_SMS,
+    assert not TF.launch_plan(4096, 16, 600, "f32", H100_SMS,
                               {"s": 4}).staged
 
 
 def test_the_plan_keeps_the_most_stage_buffers_resident():
     """Every other layout that fits holds no more stage buffers per SM
     (warps per SM x stages) than the plan's."""
-    for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
-        plan = TF.launch_plan(4096, 16, 100, dtype, H100_SMS)
+    for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
+        plan = TF.launch_plan(4096, 16, 100, TF.KINDS[dtype, dtype],
+                              H100_SMS)
         held = plan.warps * plan.blocks_per_sm * plan.stages
         for stages in (1, 2):
             for warps in range(1, TF.MAX_WARPS + 1):
-                smem = TF._layout(16, 100, itemsize, warps, stages)[2]
+                smem = TF._layout(16, 100, kind, warps, stages)[2]
                 if smem <= TF.MAX_SMEM_BYTES:
                     other = warps * stages * TF._blocks_per_sm(warps, smem,
-                                                               itemsize)
+                                                               kind)
                     assert other <= held
 
 
@@ -140,13 +142,13 @@ def test_a_shape_that_cannot_fit_raises(m, n, dtype):
     with pytest.raises(ValueError,
                        match=r"needs \d+ bytes of shared memory per block, "
                              r"above the 232448 a Hopper block can have"):
-        TF.launch_plan(4, m, n, dtype, H100_SMS)
+        TF.launch_plan(4, m, n, TF.KINDS[dtype, dtype], H100_SMS)
 
 
 @pytest.mark.parametrize("batch", [1, 5, 4097, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_the_persistent_walk_covers_every_instance_once(batch, dtype):
-    plan = TF.launch_plan(batch, 16, 100, dtype, H100_SMS)
+    plan = TF.launch_plan(batch, 16, 100, TF.KINDS[dtype, dtype], H100_SMS)
     seen = np.zeros(batch, dtype=np.int64)
     shares = []
     for block in range(plan.grid):
@@ -165,32 +167,32 @@ def test_the_persistent_walk_covers_every_instance_once(batch, dtype):
 def test_overrides_are_kept_and_checked(warps, stages):
     """A layout given to ``_layout_plan`` (as tests and measurements do) is
     kept as given and held to the block's limits."""
-    plan = TF._layout_plan(100, 16, 100, torch.float32, H100_SMS, warps,
+    plan = TF._layout_plan(100, 16, 100, "f32", H100_SMS, warps,
                            stages, True)
     assert (plan.warps, plan.stages) == (warps, stages)
-    assert plan.smem_bytes == TF._layout(16, 100, 4, warps, stages)[2]
+    assert plan.smem_bytes == TF._layout(16, 100, "f32", warps, stages)[2]
     with pytest.raises(ValueError, match="shared memory"):
-        TF._layout_plan(100, 16, 100, torch.float32, H100_SMS, 8, 2, True)
+        TF._layout_plan(100, 16, 100, "f32", H100_SMS, 8, 2, True)
     # with rows in device memory the same layout fits
-    assert not TF._layout_plan(100, 16, 100, torch.float32, H100_SMS, 8, 2,
+    assert not TF._layout_plan(100, 16, 100, "f32", H100_SMS, 8, 2,
                                False).staged
     with pytest.raises(ValueError, match="must be in"):
-        TF._layout_plan(100, 16, 100, torch.float32, H100_SMS, 1, 3, True)
+        TF._layout_plan(100, 16, 100, "f32", H100_SMS, 1, 3, True)
 
 
 def test_unstaged_plans_can_be_forced_and_ignore_row_addresses():
-    plan = TF._layout_plan(64, 16, 100, torch.float32, H100_SMS, 4, 2,
+    plan = TF._layout_plan(64, 16, 100, "f32", H100_SMS, 4, 2,
                            False, {"s": 4, "v": 4})
     assert not plan.staged
     assert plan.copy == {"s": "none", "y": "none", "mat": "bulk",
                          "yy": "bulk", "v": "none", "ys": "bulk"}
-    assert plan.smem_bytes == TF._layout(16, 100, 4, plan.warps,
+    assert plan.smem_bytes == TF._layout(16, 100, "f32", plan.warps,
                                          plan.stages, False)[2]
 
 
 def test_element_misaligned_address_raises():
     with pytest.raises(ValueError, match="not a multiple of its 8-byte"):
-        TF.launch_plan(4, 16, 100, torch.float64, H100_SMS, {"s": 4})
+        TF.launch_plan(4, 16, 100, "f64", H100_SMS, {"s": 4})
 
 
 def test_simple_kernel_on_cpu_takes_plain_version_and_counts_nothing():

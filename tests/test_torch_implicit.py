@@ -217,3 +217,91 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="both lb and ub"):
         implicit_minimize(f, torch.zeros(2), torch.zeros(2),
                           lb=torch.zeros(2), device="cpu")
+
+
+@pytest.mark.parametrize("precondition", [True, False])
+def test_cg_counts_per_instance_match_jax_cg(precondition):
+    """The adjoint CG's iterations, instance by instance, in f32: the
+    port's ``diff.cg`` against ``jax.scipy.sparse.linalg.cg`` (the JAX
+    package's unsharded backward, lbfgspp_tpu/diff.py:196-221) on the same
+    ridge logistic regressions (chip_smoke.py phase 17's problem at a
+    tiny size), from the same solution and history, with the two-loop
+    preconditioner or without.  The counts are equal, so a lockstep count
+    that grows with the preconditioner (the slowest instance's) is the
+    reference's own behaviour.  JAX's count is its Hessian-vector
+    products less the one of ``r0 = b - A x0``."""
+    from lbfgspp_tpu.ops import history as JH
+    from lbfgspp_tpu_torch.ops import history as TH
+
+    batch, rows, d = 6, 48, 12
+    rng = np.random.default_rng(5)
+
+    def data():
+        return (torch.as_tensor(rng.standard_normal((batch, rows, d)),
+                                dtype=torch.float32),
+                torch.as_tensor(np.sign(rng.standard_normal((batch, rows))),
+                                dtype=torch.float32))
+    (a, y), (av, yv) = data(), data()
+    loglam = torch.linspace(-4.0, 0.0, batch)
+
+    def ridge(w, th):
+        z = th["y"] * (th["A"] @ w)
+        return torch.logaddexp(torch.zeros_like(z), -z).mean() + \
+            0.5 * torch.exp(th["loglam"]) * (w * w).sum()
+
+    theta = {"loglam": loglam, "A": a, "y": y}
+    res = implicit_minimize(
+        ridge, torch.zeros(batch, d), theta,
+        lt.LBFGSParams(epsilon=1e-5, epsilon_rel=0.0, max_iterations=200),
+        device="cpu")
+    x = res.x.detach()
+    xv = x.clone().requires_grad_()
+    z = yv * (av @ xv[:, :, None])[:, :, 0]
+    torch.logaddexp(torch.zeros_like(z), -z).mean(1).sum().backward()
+    rhs, hist = xv.grad.detach(), res.history
+    tol, maxiter = 3e-6, 200          # both packages' f32 defaults
+
+    calls = [0]
+
+    def count(_):
+        calls[0] += 1
+
+    def j_ridge(w, ai, yi, li):
+        zz = yi * (ai @ w)
+        return jnp.logaddexp(0.0, -zz).mean() + 0.5 * jnp.exp(li) * \
+            jnp.sum(w * w)
+
+    @jax.jit
+    def j_cg(xi, ai, yi, li, h, b):
+        def amat(u):
+            jax.debug.callback(count, u[0])
+            return jax.jvp(lambda xx: jax.grad(j_ridge)(xx, ai, yi, li),
+                           (xi,), (u,))[1]
+        minv = (lambda r: JH.apply_hv(h, r, 1.0)) if precondition else None
+        return jax.scipy.sparse.linalg.cg(amat, b, tol=tol, maxiter=maxiter,
+                                          M=minv)[0]
+
+    j_counts, t_counts = [], []
+    for i in range(batch):
+        calls[0] = 0
+        jax.block_until_ready(j_cg(
+            *(jnp.asarray(t[i].numpy()) for t in (x, a, y, loglam)),
+            JH.LBFGSHistory(*(None if t is None else jnp.asarray(t[i].numpy())
+                              for t in hist)),
+            jnp.asarray(rhs[i].numpy())))
+        j_counts.append(calls[0] - 1)
+        th_i = {k: v[i:i + 1] for k, v in theta.items()}
+        h_i = TH.LBFGSHistory(*(None if t is None else t[i:i + 1]
+                                for t in hist))
+
+        def amat(u):
+            return torch.func.vmap(
+                lambda xx, th, uu: torch.func.jvp(
+                    lambda w: torch.func.grad(ridge)(w, th), (xx,),
+                    (uu,))[1])(x[i:i + 1], th_i, u)
+        minv = (lambda r: TH.apply_hv(h_i, r, 1.0)) if precondition else None
+        diff.COUNTS.clear()
+        diff.cg(amat, rhs[i:i + 1], tol, maxiter, minv)
+        t_counts.append(diff.COUNTS["cg_iterations"])
+    assert min(j_counts) > 0
+    assert t_counts == j_counts

@@ -218,6 +218,16 @@ def test_single_solve_and_options():
         device="cpu")
     assert res.x.shape == (16,) and res.niter.dim() == 0
     assert int(res.status) == int(lt.Status.CONVERGED_GRAD)
-    with pytest.raises(NotImplementedError):
-        minimize_owlqn(t_loss, torch.zeros(16, dtype=F64), 0.02,
-                       history_dtype=torch.bfloat16, device="cpu")
+    # bf16 history rows (tests/test_torch_history_dtype.py holds them
+    # against JAX): the same solution of this well-conditioned lasso
+    rows = minimize_owlqn(
+        lambda x: 0.5 * torch.sum((torch.as_tensor(a[0]) @ x
+                                   - torch.as_tensor(b[0])) ** 2),
+        torch.zeros(16, dtype=F64), 0.02,
+        lt.LBFGSParams(epsilon=1e-8, epsilon_rel=0.0, max_iterations=300),
+        history_dtype=torch.bfloat16, device="cpu")
+    assert rows.history.s.dtype == torch.bfloat16
+    assert int(rows.status) == int(lt.Status.CONVERGED_GRAD)
+    np.testing.assert_allclose(rows.x.numpy(), res.x.numpy(), rtol=0,
+                               atol=1e-7)
+    np.testing.assert_array_equal(rows.x.numpy() == 0, res.x.numpy() == 0)

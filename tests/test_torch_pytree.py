@@ -5,8 +5,9 @@ The cases of tests/test_pytree.py: the pytree solve is the flat solve of
 ``fun`` composed with ``unravel`` bit for bit, structure and dtypes come
 back, an explicit gradient tree equals autodiff, scalar and per-leaf boxes
 (with a pinned leaf) match the flat box solve, and a bad bound structure
-raises.  Leaves are taken in ``torch.utils._pytree``'s order (a dict's
-insertion order; JAX sorts a dict's keys).  Against
+raises.  Leaves are taken in JAX's order (a dict's by sorted key;
+tests/test_torch_pytree_keys.py holds trees built in another key order).
+Against
 ``lbfgspp_tpu.minimize_pytree`` in f64 on the CPU: the same iteration
 count, x to 1e-12 (the same arithmetic summed in another order).
 """
@@ -45,8 +46,7 @@ def flat(tree):
 
 
 def assert_leaves_close(tree, jtree, atol):
-    """Leaf by leaf, by key: torch's pytree keeps a dict's insertion
-    order where JAX's sorts the keys, so the flat orders differ."""
+    """Leaf by leaf, by key."""
     for path in (("a",), ("b", "w"), ("b", "v")):
         got, want = tree, jtree
         for key in path:

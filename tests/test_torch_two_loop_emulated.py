@@ -11,7 +11,11 @@ its phase as the PTX specification says.  The launch plan comes from
 ``fused.launch_plan``, so the walk, the stage ring, both copy paths, the
 unstaged plan and both recursions run as on the card, and their result is
 held against ``fused.two_loop_plain`` (tolerances as on the card: 1e-12 in
-f64 and 1e-5 in f32, relative to the largest output).
+f64 and 1e-5 in f32, relative to the largest output).  The bf16
+instantiations run too: bf16 rows beside f32 operands ("bf16rows", held
+to 1e-5 against the plain version on the same rows), and everything in
+bf16 ("bfloat16", held to 2^-8 of the largest output against the plain
+version computed in f32 from the same bf16 inputs and rounded once).
 
 What this cannot show: that nvcc accepts the source, timing, or the memory
 model of the asynchronous proxy; tests/test_torch_cuda.py covers those on
@@ -56,8 +60,15 @@ CASES = {
     "soft reset": (5, 100, 16, (20,) * 5, "plan", (), 1),
 }
 SOFT_RESET = (True, False, True, True, False)
+BF16 = ("bf16rows", "bfloat16")
 MODES = ("sweeps", "rinv")
-DTYPES = ("float32", "float64")
+DTYPES = ("float32", "float64", "bf16rows", "bfloat16")
+RTOL.update(bf16rows=1e-5, bfloat16=2.0 ** -8)
+# dtype label -> (row dtype, operand dtype, the kernel's entry point)
+TYPES = {"float32": (torch.float32, torch.float32, "f32"),
+         "float64": (torch.float64, torch.float64, "f64"),
+         "bf16rows": (torch.bfloat16, torch.float32, "bf16rows"),
+         "bfloat16": (torch.bfloat16, torch.bfloat16, "bf16")}
 
 EMULATED_RUNTIME = r'''
 #pragma once
@@ -83,10 +94,14 @@ inline thread_local dim3 blockIdx, threadIdx;
 inline dim3 gridDim, blockDim;
 struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline double2 make_double2(double a, double b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
 
 // One block at a time; its threads run concurrently.
 struct EmuBlock {
@@ -311,18 +326,24 @@ def _run_case(lib, label, dtype, mode):
     batch, n, m, ncorrs, layout, odd, sms = CASES[label]
     h = _history(batch, n, m, ncorrs, seed=m,
                  soft_reset=SOFT_RESET if label == "soft reset" else None)
-    h = type(h)(*(t.to(getattr(torch, dtype)) if t.is_floating_point()
-                  else t for t in h))
+    row, op, suffix = TYPES[dtype]
+    h = type(h)(*(t.to(row if k < 2 else op) if t.is_floating_point()
+                  else t for k, t in enumerate(h)))
     v = torch.as_tensor(np.random.default_rng(1).standard_normal((batch, n)),
-                        dtype=getattr(torch, dtype))
+                        dtype=op)
     if "s" in odd:
         h = h._replace(s=_at_odd_offset(h.s))
     if "v" in odd:
         v = _at_odd_offset(v)
     args = (h.s, h.y, h.ys, h.theta, h.ptr, h.ncorr, h.sy, h.yy, h.rinv, v)
-    want = fused.two_loop_plain(*args, -1.0, mode)
+    if op == torch.bfloat16:
+        # computed in f32 from the same bf16 inputs, rounded once
+        want = fused.two_loop_plain(
+            *(t.float() if t is not None and t.is_floating_point() else t
+              for t in args), -1.0, mode).to(op).float()
+    else:
+        want = fused.two_loop_plain(*args, -1.0, mode)
     out = torch.full_like(v, float("nan"))
-    suffix = "f64" if dtype == "float64" else "f32"
     pointers = [t.data_ptr() for t in args] + [out.data_ptr(), batch, m, n,
                                                -1.0, fused.MODES[mode]]
     before = (lib.emu_copies(0), lib.emu_copies(1))
@@ -334,17 +355,19 @@ def _run_case(lib, label, dtype, mode):
                      "mat": mat.data_ptr(), "yy": h.yy.data_ptr(),
                      "v": v.data_ptr(), "ys": h.ys.data_ptr()}
         if layout == "plan":
-            plan = fused.launch_plan(batch, m, n, v.dtype, sms, addresses)
+            plan = fused.launch_plan(batch, m, n, fused.KINDS[row, op], sms,
+                                     addresses)
         else:
-            plan = fused._layout_plan(batch, m, n, v.dtype, sms, *layout,
-                                      addresses)
+            plan = fused._layout_plan(batch, m, n, fused.KINDS[row, op], sms,
+                                      *layout, addresses)
         err = getattr(lib, f"lbfgs_two_loop_{suffix}")(
             *pointers, plan.warps, plan.stages, plan.grid, int(plan.staged),
             plan.codes, plan.smem_bytes, None)
     if err:
         raise RuntimeError(f"{label}: the host entry refused the launch "
                            f"({err})")
-    rel = (out - want).abs().max().item() / want.abs().max().item()
+    rel = (out.to(want.dtype) - want).abs().max().item() / \
+        want.abs().max().item()
     return {"rel": rel, "bulk": lib.emu_copies(0) - before[0],
             "cp_async": lib.emu_copies(1) - before[1]}
 
@@ -355,15 +378,17 @@ def _main(lib_path):
     lib = ctypes.CDLL(lib_path)
     common = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
         [ctypes.c_double, ctypes.c_int]
-    for t in ("f32", "f64"):
+    for t in fused.SIZES:
         getattr(lib, f"lbfgs_two_loop_{t}").argtypes = \
             common + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_longlong,
                                            ctypes.c_void_p]
+    for t in ("f32", "f64"):
         getattr(lib, f"lbfgs_two_loop_simple_{t}").argtypes = \
             common + [ctypes.c_void_p]
     lib.emu_copies.restype = ctypes.c_longlong
     results = {f"{label}|{dtype}|{mode}": _run_case(lib, label, dtype, mode)
-               for label in CASES for dtype in DTYPES for mode in MODES}
+               for label in CASES for dtype in DTYPES for mode in MODES
+               if not (label == "simple kernel" and dtype in BF16)}
     print(json.dumps(results))
 
 
@@ -410,13 +435,16 @@ def emulated(tmp_path_factory):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("label", list(CASES))
+@pytest.mark.parametrize("label,dtype", [
+    pytest.param(label, dtype, id=f"{label}-{dtype}")
+    for label in CASES for dtype in DTYPES
+    # the first design takes float32 and float64 only
+    if not (label == "simple kernel" and dtype in BF16)])
 def test_emulated_kernel_matches_plain(emulated, label, dtype, mode):
     assert emulated[f"{label}|{dtype}|{mode}"]["rel"] <= RTOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES[:2])
 def test_emulated_copies_follow_the_plan(emulated, dtype):
     """Aligned runs arrive by bulk copies (s, y, mat, yy, v, ys per
     instance) and only the header by cp.async; unstaged, s, y and v are not
@@ -429,3 +457,28 @@ def test_emulated_copies_follow_the_plan(emulated, dtype):
     # s, y and v rows one element a piece (no wider granule divides a row
     # of 101), and the header
     assert rows["cp_async"] == 3 * ((2 * 16 + 1) * 101 + 3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES[2:])
+def test_emulated_bf16_copies_follow_the_plan(emulated, dtype):
+    """bf16 rows of n=100 (200 bytes) go by 8-byte cp.async; rows of
+    n=101 (202 bytes) stay in device memory, so only the [m, m] runs, ys
+    and the header are copied; at m=1 the all-bf16 [m, m] runs and ys are
+    two bytes each and go by the lanes' own loads (neither bulk copy nor
+    cp.async; the rows of n=40 are bulk copies), and its bf16 theta is
+    read where it is used (two header copies)."""
+    ring = emulated[f"two-stage ring|{dtype}|rinv"]
+    # s and y: 16 rows of 25 granules each; v: 25 more in bf16, a bulk
+    # copy beside bf16 rows; the header 2 (bf16) or 3
+    if dtype == "bfloat16":
+        assert ring["cp_async"] == 13 * (2 * 16 * 25 + 25 + 2)
+        assert ring["bulk"] == 13 * 3
+    else:
+        assert ring["cp_async"] == 13 * (2 * 16 * 25 + 3)
+        assert ring["bulk"] == 13 * 4
+    rows = emulated[f"n=101|{dtype}|rinv"]
+    assert rows["bulk"] == 3 * 3
+    assert rows["cp_async"] == 3 * (2 if dtype == "bfloat16" else 3)
+    if dtype == "bfloat16":
+        m1 = emulated[f"m=1|{dtype}|rinv"]
+        assert m1["bulk"] == 3 * 3 and m1["cp_async"] == 3 * 2
