@@ -136,6 +136,32 @@ Phases (any failure makes the script exit 1 and print no result):
    ``scipy_compat.minimize`` solve on the card, 20 ``optax_compat.LBFGS``
    steps of a small MLP and a checkpoint round trip of a card state.
 
+22. the collectives (``parallel/collectives.py``) on an NCCL group of one
+   rank: each equals its local value, one call per site;
+23. the feature-split logistic regression at n = 2^27
+   (scripts/bench_largest_n_logreg.py: 8 rows regenerated from seeded
+   generators in 4 row chunks in both passes of every evaluation, m=6,
+   f32, epsilon 0) through ``minimize_sharded`` on that group, 6 and 16
+   iterations differenced, f32 and bf16 rows: seconds per iteration,
+   bytes per iteration against the measured bandwidth, peak memory,
+   all-reduces per iteration by site; x, fx and niter bit-identical to
+   the same solve on the oracle without its all-reduce;
+24. ``tools/sharded_cases.chip_cases`` at n = 2^20, f64, on two gloo ranks
+   sharing the card (CUDA tensors; ``tools/spawn_ranks.py``) against the
+   same cases on the group of one: the logistic regression, the chained
+   Rosenbrock in [2, 4] through ``minimize_b_sharded(gcp="auto")``, a
+   lasso through ``minimize_owlqn_sharded`` and the hypergradient of
+   ``implicit_minimize_sharded``: equal counts, x (or the gradient)
+   within 1e-8, the solver's all-reduce sites within the JAX audit's
+   budget;
+25. ``minimize_batched(mesh=)`` and ``minimize_b_batched(mesh=)`` on the
+   group of one: phases 9 and 11 again, bit for bit, with their
+   launches, only the batch's own all-reduces (the selections' score
+   gathers and the result's) and the every-run gates; then the box
+   recipe through ``gcp="walk"``, ``"walk_chunked"`` and
+   ``"walk_auto"``: box solves/s, walk rounds per GCP call, every
+   instance within 1e-4.
+
 Phase 5 also times the kernel at the pair shapes beside their bound;
 phase 2 also checks the solver families' shapes.  The last lines are the
 card's name and power limit (nvidia-smi), a JSON ``kernels`` line, and
@@ -184,6 +210,13 @@ IMP_BATCH, IMP_ROWS, IMP_D, IMP_CHECK = 1024, 512, 64, 16
 # The largest-n solve (phase 20; scripts/bench_largest_n.py) and the
 # kernel's bf16-row check at its shape (phase 18).
 LARGEST_N = 1 << 27
+LOGREG_ROWS, LOGREG_CHUNKS = 8, 4     # scripts/bench_largest_n_logreg.py
+SPLIT_N = 1 << 20                     # phase 24's two ranks on one card
+SPLIT_TIMEOUT = 600
+# The JAX audit's static all-reduce counts (tests/test_collective_audit.py)
+# for the solver's own sites; an objective's own all-reduces come on top.
+AUDIT_BUDGET = {"logreg": 6, "box_auto": 60, "owlqn": 5, "implicit": 12}
+OBJECTIVE_SITES = ("logreg.", "chained.", "lasso.", "objective")
 # The dispatch rule's sweep (phase 18): the batches of each type around
 # its threshold, and n around fused.LARGE_N; the route two_loop takes may
 # lose to the other on one of device time and time per call, or on both
@@ -985,7 +1018,7 @@ def main() -> int:
         finally:
             lbatch.polish_solve, lbatch._merge_polished = polish_solve, merge
             dfl._interpret = interpret
-        full_state.update(launches=launches, main=main,
+        full_state.update(launches=launches, main=main, result=res,
                           polished=merge(main, pol))
         med = np.median(np.asarray(runs), axis=0)
         _log(f"   full path B={MAIN_BATCH} n={MAIN_N} m={MAIN_M} (f32 main "
@@ -2165,6 +2198,295 @@ def main() -> int:
     smoke.phase("bf16 rows on the lasso and stochastic paths; the interop "
                 "front ends", bf16_families_and_front_ends)
 
+    # 22 --------------------------------------------------------------
+    import torch.distributed as dist
+    from lbfgspp_tpu_torch.parallel import collectives as coll
+    from lbfgspp_tpu_torch.tools import sharded_cases, spawn_ranks
+    split_state = {}
+
+    def collectives_on_one():
+        """Every collective on an NCCL group of one rank: each equals its
+        local value, and each call ticks its site's counter once."""
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+        split_state["group"] = dist.group.WORLD
+        got = sharded_cases.collectives(seed=4, device="cuda")
+        d = {k: torch.as_tensor(v, device=dev) for k, v in
+             sharded_cases.collective_inputs(4, 0).items()}
+        a, b, mat = d["a"], d["b"], d["mat"]
+        want = {
+            "psum": a, "pdot": torch.linalg.vecdot(a, b),
+            "psqnorm": torch.linalg.vecdot(a, a),
+            "pnorm": torch.linalg.vecdot(a, a).sqrt(), "pmax": a,
+            "pmin": a, "pall": d["flags"],
+            "pmax_abs": a.abs().amax(1),
+            "pdot2": torch.stack([torch.linalg.vecdot(a, b),
+                                  torch.linalg.vecdot(b, b)], 1),
+            "pmatvec": (mat @ a[:, :, None])[:, :, 0],
+            "pgram": mat @ mat.transpose(1, 2),
+            "pfused": torch.cat([a, mat.reshape(3, -1)], 1),
+            "gather_rows": torch.arange(5.0, dtype=a.dtype, device=dev)
+            [:, None].expand(-1, 2),
+            "gather_bool": torch.arange(5, device=dev) > 2}
+        bad = [k for k, v in want.items() if not torch.equal(got[k], v)]
+        counts = got["counts"]
+        _log(f"   NCCL group of one ({dist.get_backend()}): "
+             f"{len(want)} collectives equal their local values: "
+             f"{not bad}; calls by site {counts}")
+        if bad or any(v != 1 for k, v in counts.items() if k != "gather") \
+                or counts.get("gather") != 2:
+            raise AssertionError(f"collectives on one rank: {bad}, {counts}")
+
+    smoke.phase("the collectives on an NCCL group of one", collectives_on_one)
+
+    # 23 --------------------------------------------------------------
+    def sharded_logreg():
+        """scripts/bench_largest_n_logreg.py on the card: the feature-split
+        logistic regression (make_sharded_logreg's pattern, the design
+        matrix regenerated from seeded generators in row chunks in both
+        passes of every evaluation) at n = 2^27, 8 rows, m=6, f32,
+        epsilon 0, through minimize_sharded on the NCCL group of one, 6
+        and 16 iterations differenced, f32 and bf16 rows; held bit for
+        bit against the same solve by lbfgs's solver on the oracle with
+        the all-reduce taken out."""
+        from lbfgspp_tpu_torch import lbfgs as tlbfgs
+        group = split_state["group"]
+        n, rows, chunks, m = LARGEST_N, LOGREG_ROWS, LOGREG_CHUNKS, 6
+        rc = rows // chunks
+        labels = torch.sign(torch.randn(rows, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev))
+        evals = [0]
+
+        def a_chunk(c):
+            gen = torch.Generator(device=dev).manual_seed(1000 + c)
+            return torch.randn(rc, n, generator=gen, device=dev) / \
+                math.sqrt(n)
+
+        def make_fg(grp):
+            def fg(w):
+                evals[0] += 1
+                logits = torch.cat([w @ a_chunk(c).T
+                                    for c in range(chunks)], 1)
+                logits = coll.psum(logits, grp, "logreg.logits")
+                z = -labels * logits
+                d = -labels * torch.sigmoid(z)
+                grad = torch.zeros_like(w)
+                for c in range(chunks):
+                    grad += d[:, c * rc:(c + 1) * rc] @ a_chunk(c)
+                return torch.logaddexp(torch.zeros_like(z), z).sum(-1), grad
+            return fg
+
+        x0 = torch.zeros(n, device=dev)
+        k1, k2 = 6, 16
+        for hdt, size in ((None, 4), (bf16, 2)):
+            label = "f32" if hdt is None else "bf16"
+            secs, per_site = {}, {}
+            for k in (k1, k2):
+                p = lt.LBFGSParams(epsilon=0.0, epsilon_rel=0.0,
+                                   max_iterations=k, m=m)
+                coll.COUNTS.clear()
+                fused.reset_counts()
+                evals[0] = 0
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = lt.minimize_sharded(
+                    local_fun_and_grad=make_fg(group), x0=x0, params=p,
+                    mesh=group, history_dtype=hdt, device=dev)
+                torch.cuda.synchronize()
+                secs[k] = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                per_site = {s: v / k for s, v in sorted(coll.COUNTS.items())}
+                ev = evals[0]
+                if int(res.niter) != k or not bool(torch.isfinite(res.fx)):
+                    raise AssertionError(f"sharded logreg: niter "
+                                         f"{int(res.niter)}, fx "
+                                         f"{float(res.fx)}")
+            per_iter = (secs[k2] - secs[k1]) / (k2 - k1)
+            # the history's bytes an iteration moves (phase 20's count)
+            # and the design matrix's: each evaluation writes and reads
+            # every chunk twice (value and gradient passes)
+            hist_bytes = 2 * (2 * m) * n * size + (2 * m) * n * size + \
+                14 * n * 4
+            a_bytes = 2 * 2 * rows * n * 4 * ev / k2
+            bw = main_state.get("bandwidth", HBM_BYTES_PER_S)
+            plain = tlbfgs._build_solver(
+                make_fg(None), lt.LBFGSParams(epsilon=0.0, epsilon_rel=0.0,
+                                              max_iterations=k2, m=m),
+                history_dtype=hdt, device=dev)
+            ref = plain.finalize(plain.run(plain.init(x0[None])))
+            same = torch.equal(res.x, ref.x[0]) and \
+                int(res.niter) == int(ref.niter[0]) and \
+                torch.equal(res.fx, ref.fx[0])
+            _log(f"   n=2^27 logreg, {label} rows: {secs[k1]:.3f} s for {k1}"
+                 f" and {secs[k2]:.3f} s for {k2} iterations -> "
+                 f"{per_iter:.4f} s/iteration; {ev / k2:.2f} evaluations "
+                 f"per iteration; ~{(hist_bytes + a_bytes) / 1e9:.2f} GB "
+                 f"per iteration (history {hist_bytes / 1e9:.2f}, design "
+                 f"matrix {a_bytes / 1e9:.2f}) = "
+                 f"{(hist_bytes + a_bytes) / per_iter / bw:.1%} of the "
+                 f"measured bandwidth; peak memory {peak / 1e9:.2f} GB; "
+                 f"all-reduces per iteration by site {per_site}; the "
+                 f"direction's route {dict(fused.two_loop.plain_reasons)}; "
+                 f"bit-identical to the unsharded solve: {same}")
+            if not same:
+                raise AssertionError(f"{label}: the sharded solve on one "
+                                     f"rank differs from the unsharded one")
+            split_state[f"logreg_{label}"] = per_iter
+            del res, ref
+            torch.cuda.empty_cache()
+
+    if "group" in split_state:
+        smoke.phase("the feature-split logistic regression at n = 2^27",
+                    sharded_logreg)
+
+    # 24 --------------------------------------------------------------
+    def two_ranks_on_one_card():
+        """sharded_cases.chip_cases at n = 2^20, f64, on two gloo ranks
+        whose tensors are on the card, against the same cases on the
+        parent's NCCL group of one."""
+        t0 = time.perf_counter()
+        ranks = spawn_ranks.run(
+            "lbfgspp_tpu_torch.tools.sharded_cases:chip_cases", 2,
+            args=(SPLIT_N, "cuda"), backend="gloo", timeout=SPLIT_TIMEOUT)
+        t1 = time.perf_counter()
+        one = spawn_ranks.to_numpy(sharded_cases.chip_cases(SPLIT_N,
+                                                            "cuda"))
+        t2 = time.perf_counter()
+        _log(f"   two gloo ranks {t1 - t0:.1f} s (process start "
+             f"included), one NCCL rank {t2 - t1:.1f} s")
+        problems = []
+        for name, budget in AUDIT_BUDGET.items():
+            want, got = one[name], [r[name] for r in ranks]
+            if name == "implicit":      # the hypergradient, replicated
+                x2, x1 = got[0]["grad"], want["grad"]
+                counts = {**got[0]["forward"], **got[0]["backward"]}
+            else:
+                x2 = np.concatenate([g["x"] for g in got])
+                x1, counts = want["x"], got[0]["counts"]
+            err = float(np.abs(x2 - x1).max() / max(np.abs(x1).max(),
+                                                    1e-300))
+            iters = int(np.asarray(got[0]["niter"]).reshape(-1)[0])
+            sites = {s: v for s, v in counts.items()
+                     if not s.startswith(OBJECTIVE_SITES)}
+            own = {s: v for s, v in counts.items() if s not in sites}
+            _log(f"   {name}: niter {iters} (one rank "
+                 f"{int(np.asarray(want['niter']).reshape(-1)[0])}); "
+                 f"max rel. difference {err:.3e}; solver all-reduce sites "
+                 f"{len(sites)} (budget {budget}), calls per iteration "
+                 f"{sum(sites.values()) / max(iters, 1):.2f}, the "
+                 f"objective's {sum(own.values()) / max(iters, 1):.2f}; "
+                 f"walk rounds {got[0].get('walk_rounds', 0)}")
+            if iters != int(np.asarray(want["niter"]).reshape(-1)[0]) or \
+                    not err <= 1e-8 or len(sites) > budget:
+                problems.append(name)
+        if problems:
+            raise AssertionError(f"two ranks vs one: {problems}")
+
+    if "group" in split_state:
+        smoke.phase("feature-split solves on two gloo ranks sharing the "
+                    "card", two_ranks_on_one_card)
+
+    # 25 --------------------------------------------------------------
+    def mesh_paths():
+        """minimize_batched(mesh=) and minimize_b_batched(mesh=) on the
+        NCCL group of one: phases 9 and 11 again, bit for bit, with the
+        same launches and no collective inside the solves; then the
+        sortless walk GCPs on the box recipe without a mesh."""
+        from lbfgspp_tpu_torch.ops import cauchy
+        group = split_state["group"]
+        coll.COUNTS.clear()
+        fused.two_loop.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.minimize_batched(objectives.rosenbrock, x0s, params,
+                                  mesh=group, **recipe)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, counts = fused.two_loop.launches, dict(coll.COUNTS)
+        ref = full_state["result"]
+        same = all(torch.equal(getattr(res, f), getattr(ref, f)) for f in
+                   ("x", "fx", "niter", "nfev", "status"))
+        err = (res.x.double() - 1.0).abs().max(dim=1).values
+        split_state["mesh_launches"] = launches
+        _log(f"   full path, mesh= on one rank: {secs:.3f} s = "
+             f"{MAIN_BATCH / secs:.1f} solves/s; bit-identical to phase 9: "
+             f"{same}; launches {launches} (phase 9: "
+             f"{full_state['launches']}); all-reduces {counts}; every-run "
+             f"max|x - 1| {err.max().item():.3e}")
+        if not same or launches != full_state["launches"] or \
+                not all(s.startswith("batch.") for s in counts) or \
+                bool((err > 1e-4).any()):
+            raise AssertionError("mesh= full path")
+        lb, ub = (torch.full((BOX_N,), v, device=dev) for v in (2.0, 4.0))
+        coll.COUNTS.clear()
+        fused.two_loop.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.minimize_b_batched(objectives.rosenbrock, bx0s, lb, ub,
+                                    bparams, gcp="prefix",
+                                    polish_iters=BOX_POLISH_ITERS,
+                                    mesh=group, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, counts = fused.two_loop.launches, dict(coll.COUNTS)
+        ref = box_state["bench"]["res"]
+        same = all(torch.equal(getattr(res, f), getattr(ref, f)) for f in
+                   ("x", "fx", "niter", "nfev", "status"))
+        err = (res.x.double() - xstar_box).abs().max(1).values
+        split_state["mesh_box_launches"] = launches
+        _log(f"   box recipe, mesh= on one rank: {secs:.3f} s = "
+             f"{BOX_BATCH / secs:.1f} box solves/s; bit-identical to phase "
+             f"11: {same}; launches {launches} (phase 11: "
+             f"{box_state['bench']['launches']}); all-reduces {counts}; "
+             f"max|x - (2, 4, ...)| {err.max().item():.3e}")
+        if not same or launches != box_state["bench"]["launches"] or \
+                not all(s.startswith("batch.") for s in counts) or \
+                bool((err > 1e-4).any()):
+            raise AssertionError("mesh= box recipe")
+        for gcp in ("walk", "walk_chunked", "walk_auto"):
+            cauchy.WALK_COUNTS.clear()
+            calls = [0]
+            fn = cauchy.GCP_IMPLS[gcp]
+
+            def counted(*args, **kwargs):
+                calls[0] += 1
+                return fn(*args, **kwargs)
+
+            cauchy.GCP_IMPLS[gcp] = counted
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = lt.minimize_b_batched(
+                    objectives.rosenbrock, bx0s, lb, ub, bparams, gcp=gcp,
+                    polish_iters=BOX_POLISH_ITERS, device=dev)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                cauchy.GCP_IMPLS[gcp] = fn
+            err = (res.x.double() - xstar_box).abs().max(1).values
+            rounds = cauchy.WALK_COUNTS["rounds"]
+            _log(f"   box recipe, gcp={gcp}: {secs:.3f} s = "
+                 f"{BOX_BATCH / secs:.1f} box solves/s (prefix: "
+                 f"{BOX_BATCH / box_state['bench']['seconds'][2]:.1f}); "
+                 f"{calls[0]} GCP calls, {rounds} lockstep walk rounds "
+                 f"({rounds / max(calls[0], 1):.2f} a call); "
+                 f"frac_within_1e-4 {(err <= 1e-4).double().mean().item():.4f}"
+                 f", worst {err.max().item():.3e}")
+            if bool((err > 1e-4).any()):
+                raise AssertionError(f"gcp={gcp}: instances beyond 1e-4")
+
+    if "group" in split_state and "result" in full_state and \
+            "bench" in box_state:
+        smoke.phase("mesh= batches on an NCCL group of one; the walk "
+                    "GCPs on the box recipe", mesh_paths)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
     if smoke.failures:
         _log("FAILED: " + ", ".join(smoke.failures))
         return 1
@@ -2208,6 +2530,10 @@ def main() -> int:
     kernel["owlqn_polish_launches"] = owl_state["c launches"]
     kernel["stochastic_launches"] = stoch_state["launches"]
     kernel["implicit_launches"] = imp_state["launches"]
+    # the mesh= paths on the NCCL group of one (phase 25): the full path's
+    # and the box recipe's launches, equal to phases 9 and 11
+    kernel["mesh_launches"] = split_state["mesh_launches"]
+    kernel["mesh_box_launches"] = split_state["mesh_box_launches"]
     # The bf16 instantiations of the same kernel (phases 18-19): launches
     # on their main paths (the bf16-row main phase, the all-bf16 run),
     # error and times at the main shape in rinv mode.

@@ -10,9 +10,17 @@ The port's counterpart of ``lbfgspp_tpu.batch``: ``minimize_batched``
 solutions (:func:`polish_solve_owlqn`); and :func:`best_result`.  The
 JAX package maps one instance's polish over the batch with ``vmap``;
 here every phase runs the batch at once, so a polish is one batched
-solve in pair space ``[B, 2n]``.  The multi-device
-``mesh`` option is a later slice of the port and raises
-``NotImplementedError``.
+solve in pair space ``[B, 2n]``.
+
+``mesh=`` (a 1-D ``torch.distributed.DeviceMesh`` or ``ProcessGroup``)
+splits the batch over the ranks data-parallel, as the JAX package's
+batch-sharded ``jit`` does (batch.py:582-586, :867-876): each rank solves
+its contiguous block of instances with no collective inside the solve.
+The selections the JAX package makes over the whole batch stay global:
+the straggler compaction's and the deep stage's scores are gathered
+(one all-reduce each) and every rank refines the selected instances it
+holds.  The result is gathered, so every rank returns the whole batch in
+instance order.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from . import lbfgs, lbfgsb
 from .ops import history as hist_ops
 from .owlqn import pseudo_gradient
+from .parallel import collectives as coll
 from .params import LBFGSBParams, LBFGSParams
 from .types import (SUCCESS_STATUSES, SolveResult, Status,
                     data_fun_and_grad, make_fun_and_grad, resolve_device,
@@ -37,7 +46,8 @@ Tensor = torch.Tensor
 
 
 def _compact_refine(s2: lbfgs.Solver, x0s: Tensor, k_refine: int,
-                    k_stage1: int) -> lbfgs.LBFGSState:
+                    k_stage1: int, group=None,
+                    total: Optional[int] = None) -> lbfgs.LBFGSState:
     """Two-stage batched solve with straggler compaction
     (lbfgspp_tpu/batch.py:29-75).
 
@@ -46,7 +56,11 @@ def _compact_refine(s2: lbfgs.Solver, x0s: Tensor, k_refine: int,
     whole).  The states are then sorted unconverged first (stable), the
     leading ``k_refine`` run on alone to the solver's cap, and scattered
     back.  Unconverged instances beyond ``k_refine`` keep their stage-1
-    iterate and report ``MAX_ITERATIONS``."""
+    iterate and report ``MAX_ITERATIONS``.
+
+    ``group``: ``x0s`` is this rank's block of a batch of ``total``; the
+    sort runs over the whole batch's gathered flags, and this rank runs on
+    the selected instances it holds."""
     c = s2.init(x0s)
 
     def pausing(c):
@@ -56,10 +70,14 @@ def _compact_refine(s2: lbfgs.Solver, x0s: Tensor, k_refine: int,
     while bool(live.any()):
         c = tree_select(live, s2.step(c), c)
         live = pausing(c)
-    order = torch.argsort(c.done.to(torch.int32), stable=True)
+    order, k_head = _local_order(
+        torch.argsort(coll.gather_rows(c.done, total, group,
+                                       "batch.refine_select")
+                      .to(torch.int32), stable=True), k_refine, group,
+        total)
     cs = tree_map(lambda a: a[order], c)
-    head = s2.run(tree_map(lambda a: a[:k_refine], cs))
-    tail = tree_map(lambda a: a[k_refine:], cs)
+    head = s2.run(tree_map(lambda a: a[:k_head], cs))
+    tail = tree_map(lambda a: a[k_head:], cs)
     # A paused carry holds k = iterations performed + 1 (a capped one
     # holds the count itself): align the reported count.
     tail = tail._replace(
@@ -183,29 +201,48 @@ def _polish_pairs(fg2, x0: Tensor, params: LBFGSParams, iters: int, *,
                                       device=device))
 
 
+def _local_order(order: Tensor, k: int, group, total: Optional[int]):
+    """``(local, k_local)``: the instances of this rank's block in the
+    global ``order``, as local indices, and how many of them are among
+    the first ``k`` (``order`` and ``k`` themselves without a group)."""
+    if group is None:
+        return order, k
+    lo, hi = coll.block(total, group)
+    mine = (order >= lo) & (order < hi)
+    return order[mine] - lo, int(mine[:k].sum())
+
+
 def _select_stragglers(res: SolveResult, k_deep: int, direction: str,
-                       selection: str) -> Tensor:
+                       selection: str, group=None,
+                       total: Optional[int] = None) -> Tensor:
     """The indices of the ``k_deep`` instances the deep stage refines
-    (stable sorts, so ties select as the JAX package's do)."""
-    batch = res.gnorm.shape[0]
+    (stable sorts, so ties select as the JAX package's do); under a group
+    ``res`` is this rank's block of ``total`` instances, the ranking runs
+    over the gathered scores, and the indices are this rank's selected
+    ones, local."""
+    batch = res.gnorm.shape[0] if group is None else total
     if selection == "hstep":
         tri = direction if direction == "rinv" else "sweeps"
         est = torch.linalg.vector_norm(hist_ops.apply_hv(
             res.history, res.grad.contiguous(), -1.0, tri=tri), dim=-1)
         est = est.to(torch.float32)
+        est = coll.gather_rows(est, total, group, "batch.deep_select")
         est = torch.where(torch.isnan(est), math.inf, est)
         order = torch.argsort(-est, stable=True)   # largest ||H g|| first
     else:
-        gn = res.gnorm.to(torch.float32)
+        gn, status = coll.gather_rows(
+            torch.stack([res.gnorm.to(torch.float32),
+                         res.status.to(torch.float32)], dim=1),
+            total, group, "batch.deep_select").unbind(1)
         gn = torch.where(torch.isnan(gn), math.inf, gn)
-        unconv = (res.status == int(Status.MAX_ITERATIONS)) | \
-            (res.status >= 10)
+        unconv = (status == int(Status.MAX_ITERATIONS)) | (status >= 10)
         # Integer composite rank: unconverged first, then by gradient
         # norm descending.
         rank = torch.argsort(torch.argsort(-gn, stable=True), stable=True)
         order = torch.argsort(torch.where(unconv, rank, rank + batch),
                               stable=True)
-    return order[:k_deep]
+    local, k_local = _local_order(order, k_deep, group, total)
+    return local[:k_local]
 
 
 def deep_polish(fun: Optional[Callable], res: SolveResult,
@@ -216,7 +253,9 @@ def deep_polish(fun: Optional[Callable], res: SolveResult,
                 selection: str = "gnorm",
                 shift: bool = False,
                 on_ls_fail: str = "stop",
-                restarts: int = 1) -> SolveResult:
+                restarts: int = 1,
+                group=None,
+                total: Optional[int] = None) -> SolveResult:
     """Straggler-targeted deep df64 refinement of a batched result
     (lbfgspp_tpu/batch.py:442-540).
 
@@ -230,11 +269,18 @@ def deep_polish(fun: Optional[Callable], res: SolveResult,
     added.  The returned history is the input's with the refined rows
     soft-reset (``ncorr = 0``, ``theta = 1``), since their model no longer
     matches the refined iterate.
+
+    ``group``: ``res`` is this rank's block of a batch of ``total``; the
+    selection ranks the whole batch (:func:`_select_stragglers`) and this
+    rank refines the selected instances it holds.
     """
     if selection not in ("gnorm", "hstep"):
         raise ValueError(f"selection must be 'gnorm' or 'hstep', "
                          f"got {selection!r}")
-    idx = _select_stragglers(res, k_deep, direction, selection)
+    idx = _select_stragglers(res, k_deep, direction, selection, group,
+                             total)
+    if idx.numel() == 0:
+        return res
     pol = polish_solve(fun, res.x[idx], params, deep_iters,
                        fun_and_grad=fun_and_grad, line_search=line_search,
                        direction=direction, shift=shift,
@@ -315,10 +361,13 @@ def minimize_batched(fun: Optional[Callable] = None,
     is their line search (default ``line_search``, as in the JAX
     package); the bench recipe runs Nocedal-Wright in the main phase and
     More-Thuente in the df64 phases.
+
+    ``mesh`` (a 1-D ``DeviceMesh`` or ``ProcessGroup``; every rank passes
+    the same ``x0s``) splits the batch over the ranks data-parallel: each
+    solves its block with no collective inside the solve, the compaction's
+    and the deep stage's selections rank the whole batch, and every rank
+    returns the whole batch's result (see the module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError("minimize_batched(mesh=...) lands in a "
-                                  "later slice of the port")
     if drive not in ("while", "fixed"):
         raise ValueError(f"drive must be 'while' or 'fixed', got {drive!r}")
     use_refine = refine_frac > 0.0 and refine_iters > 0
@@ -335,6 +384,7 @@ def minimize_batched(fun: Optional[Callable] = None,
     device = resolve_device(device)
     x0s = lbfgs.as_batch(x0s, device)
     batch = x0s.shape[0]
+    group, x0s = _batch_block(mesh, x0s)
     pparams = params if polish_params is None else polish_params
     pline = line_search if polish_line_search is None else polish_line_search
 
@@ -346,7 +396,8 @@ def minimize_batched(fun: Optional[Callable] = None,
                           line_search=line_search, direction=direction,
                           on_ls_fail=on_ls_fail, device=device)
         res = s2.finalize(_compact_refine(s2, x0s, k_refine,
-                                          params.max_iterations))
+                                          params.max_iterations, group,
+                                          batch))
     else:
         s1 = lbfgs.solver(fun, params, fun_and_grad=fun_and_grad,
                           line_search=line_search, direction=direction,
@@ -370,8 +421,30 @@ def minimize_batched(fun: Optional[Callable] = None,
                           fun_and_grad=fun_and_grad, line_search=pline,
                           direction=direction, selection=deep_selection,
                           shift=polish_shift, on_ls_fail=polish_on_ls_fail,
-                          restarts=polish_restarts)
-    return res
+                          restarts=polish_restarts, group=group,
+                          total=batch)
+    return _gather_result(res, batch, group)
+
+
+def _batch_block(mesh, x0s: Tensor):
+    """``(group, block)``: the group of ``mesh`` (None without one) and
+    this rank's contiguous block of the instances ``x0s``."""
+    if mesh is None:
+        return None, x0s
+    group = coll.resolve_group(mesh)
+    batch, world = x0s.shape[0], torch.distributed.get_world_size(group)
+    if batch < world:
+        raise ValueError(f"a batch of {batch} cannot split over {world} "
+                         f"ranks")
+    lo, hi = coll.block(batch, group)
+    return group, x0s[lo:hi]
+
+
+def _gather_result(res: SolveResult, total: int, group) -> SolveResult:
+    """Every rank's block of the result assembled into the whole batch's,
+    in instance order (one all-reduce per field)."""
+    return tree_map(lambda t: coll.gather_rows(t, total, group,
+                                               "batch.gather_result"), res)
 
 
 def polish_solve_b(fun: Optional[Callable], x0, lb, ub,
@@ -619,10 +692,11 @@ def minimize_b_batched(fun: Optional[Callable] = None,
     tolerance) with ``LBFGSParams(epsilon=min(params.epsilon, 1e-7),
     max_iterations=max(params.max_iterations, 60), m=params.m)``; the
     result's counters are then cumulative and the box solve's status and
-    history stay."""
-    if mesh is not None:
-        raise NotImplementedError("minimize_b_batched(mesh=...) lands in a "
-                                  "later slice of the port")
+    history stay.
+
+    ``mesh`` splits the batch over the ranks as in
+    :func:`minimize_batched`: per-instance ``[B, n]`` bounds split with
+    it, shared ``[n]`` bounds are every rank's."""
     if drive not in ("while", "fixed"):
         raise ValueError(f"drive must be 'while' or 'fixed', got {drive!r}")
     if drive == "fixed" and params.max_iterations == 0:
@@ -630,6 +704,12 @@ def minimize_b_batched(fun: Optional[Callable] = None,
                          "params.max_iterations (the trip count)")
     device = resolve_device(device)
     x0s = lbfgs.as_batch(x0s, device)
+    batch = x0s.shape[0]
+    group, x0s = _batch_block(mesh, x0s)
+    if group is not None:
+        lo, hi = coll.block(batch, group)
+        lb, ub = (v[lo:hi] if torch.as_tensor(v).dim() == 2 else v
+                  for v in (lb, ub))
     if gcp == "auto":
         gcp = "prefix" if x0s.shape[-1] <= 2048 else "scan"
     s = lbfgsb.solver(fun, lb, ub, params, fun_and_grad=fun_and_grad,
@@ -648,4 +728,4 @@ def minimize_b_batched(fun: Optional[Callable] = None,
                              fun_and_grad=fun_and_grad,
                              active_tol=polish_active_tol, prior=res,
                              device=device)
-    return res
+    return _gather_result(res, batch, group)

@@ -16,6 +16,7 @@ max(epsilon, epsilon_rel * ||x||)``, plus the optional past/delta test;
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Callable, NamedTuple, Optional
 
@@ -23,6 +24,7 @@ import torch
 
 from .linesearch import get_line_search
 from .ops import history as hist_ops
+from .parallel import collectives as coll
 from .params import LBFGSParams
 from .types import (SolveResult, Status, freeze_when, i32_like,
                     make_fun_and_grad, resolve_device, tree_map)
@@ -67,10 +69,6 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
     return torch.linalg.vecdot(a, b)
 
 
-def _norm(a: Tensor) -> Tensor:
-    return torch.sqrt(_dot(a, a))
-
-
 def as_batch(x0, device: torch.device) -> Tensor:
     """``x0`` ([n] or [B, n], tensor or array) as a [B, n] tensor on
     ``device``; the dtype follows ``x0``."""
@@ -91,6 +89,7 @@ def solver(fun: Optional[Callable] = None,
            direction: str = "sweeps",
            on_ls_fail: str = "stop",
            history_dtype=None,
+           group=None,
            device=None) -> Solver:
     """Build the batched L-BFGS ``init/step/run/run_fixed/finalize``.
 
@@ -115,6 +114,11 @@ def solver(fun: Optional[Callable] = None,
     use the exact pair.  On the card a float32 solve with bf16 rows runs
     the kernel's bf16-row instantiation.
 
+    ``group``: a ``torch.distributed`` process group over which ``x`` is
+    split on its feature axis (:mod:`.parallel.sharded`); the oracle then
+    sees this rank's ``[B, n_local]`` block, and every reduction is one
+    all-reduce over the group.
+
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run on
     the CPU.
 
@@ -125,16 +129,23 @@ def solver(fun: Optional[Callable] = None,
     return _build_solver(make_fun_and_grad(fun, fun_and_grad), params,
                          line_search=line_search, direction=direction,
                          on_ls_fail=on_ls_fail, history_dtype=history_dtype,
-                         device=device)
+                         group=group, device=device)
 
 
 def _build_solver(fg, params: LBFGSParams, *,
                   line_search="nocedalwright", direction: str = "sweeps",
                   on_ls_fail: str = "stop", history_dtype=None,
-                  device=None) -> Solver:
+                  group=None, device=None) -> Solver:
     """:func:`solver` on a ready batched oracle ``fg(x [B, n]) -> (fx [B],
     grad [B, n])``, such as a pair-space oracle of
-    :mod:`.utils.doublefloat`."""
+    :mod:`.utils.doublefloat`.
+
+    Under ``group`` the reductions take these all-reduces: the start's
+    norms ride the objective's (or one of their own), each iteration
+    takes one for ``g.d``, the line search's, one for the history's fused
+    products with the convergence norms, and one in the two-loop
+    recursion; the JAX package's compiled program has the same
+    (tests/test_collective_audit.py:72-76)."""
     if on_ls_fail not in ("stop", "restart"):
         raise ValueError(f"on_ls_fail must be 'stop' or 'restart', "
                          f"got {on_ls_fail!r}")
@@ -154,26 +165,37 @@ def _build_solver(fg, params: LBFGSParams, *,
             UserWarning, stacklevel=2)
     device = resolve_device(device)
     search = get_line_search(line_search)
+    if group is not None:
+        search = functools.partial(search, group=group)
     fpast = params.past
     restart = on_ls_fail == "restart"
+
+    def norms(g: Tensor, x: Tensor) -> Tensor:
+        """The local partials ``[g.g, x.x]``, ``[B, 2]``."""
+        return torch.stack([_dot(g, g), _dot(x, x)], dim=1)
 
     def init(x0, fg0=None) -> LBFGSState:
         """``fg0``: optional precomputed ``(fx0 [B], grad0 [B, n])``."""
         x0 = as_batch(x0, device)
         batch, n = x0.shape
-        fx0, grad0 = fg(x0) if fg0 is None else fg0
-        gnorm0 = _norm(grad0)
+        if fg0 is None:
+            fx0, grad0, sq = coll.evaluate(fg, x0, lambda g: norms(g, x0),
+                                           group, "lbfgs.init")
+        else:
+            (fx0, grad0), sq = fg0, coll.psum(norms(fg0[1], x0), group,
+                                              "lbfgs.init.extra")
+        gnorm0, xnorm0 = torch.sqrt(sq[:, 0]), torch.sqrt(sq[:, 1])
         fx_ring = torch.zeros((batch, max(fpast, 1)), dtype=x0.dtype,
                               device=device)
         if fpast > 0:
             fx_ring[:, 0] = fx0
         # Early exit if x0 is already a minimizer (LBFGS.h:100-103).
         early = (gnorm0 <= params.epsilon) | \
-            (gnorm0 <= params.epsilon_rel * _norm(x0))
+            (gnorm0 <= params.epsilon_rel * xnorm0)
         drt0 = -grad0
         return LBFGSState(
             k=i32_like(1, fx0), x=x0, fx=fx0, grad=grad0, gnorm=gnorm0,
-            drt=drt0, step=1.0 / _norm(drt0),
+            drt=drt0, step=1.0 / gnorm0,
             hist=hist_ops.init_history(batch, n, params.m, x0.dtype,
                                        store_dtype=history_dtype,
                                        device=device,
@@ -185,7 +207,7 @@ def _build_solver(fg, params: LBFGSParams, *,
 
     def body(c: LBFGSState) -> LBFGSState:
         xp, gradp = c.x, c.grad
-        dg = _dot(c.grad, c.drt)
+        dg = coll.pdot(c.grad, c.drt, group, "lbfgs.dg")
         ls = search(fg, params, xp, c.drt, params.max_step, c.step, c.fx,
                     c.grad, dg, active=~c.done)
         nfev = c.nfev + ls.nfev
@@ -200,11 +222,17 @@ def _build_solver(fg, params: LBFGSParams, *,
             grad_new = torch.where(accept[:, None], ls.grad, gradp)
         else:
             x_new, fx_new, grad_new = ls.x, ls.fx, ls.grad
-        gnorm = _norm(grad_new)
+        # The history's products (LBFGS.h:159-162) come first: under a
+        # group the convergence norms ride their all-reduce, one
+        # collective, as XLA fuses them (lbfgspp_tpu/lbfgs.py:281-298).
+        s_vec, y_vec = x_new - xp, grad_new - gradp
+        *products, sq = hist_ops.correction_products(
+            c.hist, s_vec, y_vec, group, norms(grad_new, x_new))
+        gnorm, xnorm = torch.sqrt(sq[:, 0]), torch.sqrt(sq[:, 1])
 
         # Convergence test: gradient (LBFGS.h:137-140)
         conv_grad = (gnorm <= params.epsilon) | \
-            (gnorm <= params.epsilon_rel * _norm(x_new))
+            (gnorm <= params.epsilon_rel * xnorm)
 
         # Convergence test: objective decrease (LBFGS.h:142-149)
         if fpast > 0:
@@ -240,8 +268,9 @@ def _build_solver(fg, params: LBFGSParams, *,
             status = torch.where(ls_fail, ls.status, status)
 
         # History update with curvature gate (LBFGS.h:159-162)
-        hist, _ = hist_ops.update_history(c.hist, x_new - xp,
-                                          grad_new - gradp, ~done & ~ls_fail)
+        hist, _ = hist_ops.update_history(c.hist, s_vec, y_vec,
+                                          ~done & ~ls_fail,
+                                          products=products)
         if restart:
             # SOFT reset of a failed instance: every read of the rows,
             # Grams and rinv is masked by the ring validity test, so
@@ -253,7 +282,8 @@ def _build_solver(fg, params: LBFGSParams, *,
                                   hist.theta))
 
         # New direction d = -H g (LBFGS.h:165) and step reset (LBFGS.h:168)
-        drt = hist_ops.apply_hv(hist, grad_new, -1.0, tri=direction)
+        drt = hist_ops.apply_hv(hist, grad_new, -1.0, tri=direction,
+                                group=group)
         step_new = torch.ones_like(fx_new)
         if restart:
             gsafe = torch.where(gnorm > 0.0, gnorm, 1.0)

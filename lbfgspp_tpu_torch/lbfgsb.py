@@ -20,6 +20,7 @@ taken at the projected iterate with the search's gradient.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -27,6 +28,7 @@ import torch
 from .lbfgs import Solver, as_batch, unbatch
 from .linesearch import get_line_search
 from .ops import bmat, cauchy, subspace
+from .parallel import collectives as coll
 from .params import LBFGSBParams
 from .types import (SolveResult, Status, freeze_when, i32_like,
                     make_fun_and_grad, resolve_device, tree_select)
@@ -39,9 +41,11 @@ def force_bounds(x: Tensor, lb: Tensor, ub: Tensor) -> Tensor:
     return torch.minimum(torch.maximum(x, lb), ub)
 
 
-def proj_grad_norm(x: Tensor, g: Tensor, lb: Tensor, ub: Tensor) -> Tensor:
+def proj_grad_norm(x: Tensor, g: Tensor, lb: Tensor, ub: Tensor,
+                   group=None) -> Tensor:
     """``||P(x - g, lb, ub) - x||_inf`` per instance (LBFGSB.h:62-65)."""
-    return (force_bounds(x - g, lb, ub) - x).abs().amax(dim=1)
+    return coll.pmax_abs(force_bounds(x - g, lb, ub) - x, group,
+                         "lbfgsb.projg")
 
 
 def max_step_size(x: Tensor, drt: Tensor, lb: Tensor, ub: Tensor) -> Tensor:
@@ -73,16 +77,19 @@ class LBFGSBState(NamedTuple):
     nfev: Tensor        # [B] int32
 
 
-def _resolve_gcp(gcp: str) -> str:
-    """The GCP of a solve on one device: ``"auto"`` is the reference-order
-    ``"scan"`` (lbfgspp_tpu/lbfgsb.py:90-111; the batched entry point
-    routes by n itself)."""
-    if gcp == "auto":
-        return "scan"
-    if gcp not in cauchy.GCP_IMPLS:
+def _resolve_gcp(gcp: str, group=None) -> str:
+    """The GCP a solve runs (lbfgspp_tpu/lbfgsb.py:90-111).  On one
+    device ``"auto"`` is the reference-order ``"scan"`` (the batched
+    entry point routes by n itself).  Under a group the sorted forms
+    would each compute a GCP of the rank's block alone, so ``"auto"``
+    takes ``"walk_auto"`` and any other single-device name ``"walk"``."""
+    if gcp != "auto" and gcp not in cauchy.GCP_IMPLS:
         raise ValueError(f"gcp must be one of {sorted(cauchy.GCP_IMPLS)} "
                          f"or 'auto', got {gcp!r}")
-    return gcp
+    if group is not None and gcp not in ("walk", "walk_chunked",
+                                         "walk_auto"):
+        return "walk_auto" if gcp == "auto" else "walk"
+    return "scan" if gcp == "auto" else gcp
 
 
 def solver(fun: Optional[Callable] = None,
@@ -95,6 +102,7 @@ def solver(fun: Optional[Callable] = None,
            gcp: str = "scan",
            unroll_subspace: bool = False,
            middle_solve=None,
+           group=None,
            device=None) -> Solver:
     """Build the batched L-BFGS-B ``init/step/run/run_fixed/finalize``
     (see :func:`.lbfgs.solver`); the bounds ``lb``/``ub`` ([n] shared or
@@ -109,25 +117,38 @@ def solver(fun: Optional[Callable] = None,
     ``None`` takes :data:`.ops.bmat.USE_BKLDLT`.  A zero pivot latches the
     history's ``info``.
 
+    ``group``: ``x`` and the bounds are split over a ``torch.distributed``
+    process group on their feature axis (:mod:`.parallel.sharded`); the
+    oracle sees this rank's block, every reduction is an all-reduce over
+    the group, and the GCP is a sortless walk (:func:`_resolve_gcp`).
+
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run on
     the CPU."""
     return _build_solver(make_fun_and_grad(fun, fun_and_grad), lb, ub,
                          params, line_search=line_search, gcp=gcp,
                          unroll_subspace=unroll_subspace,
-                         middle_solve=middle_solve, device=device)
+                         middle_solve=middle_solve, group=group,
+                         device=device)
 
 
 def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
                   line_search="morethuente", gcp: str = "scan",
                   unroll_subspace: bool = False, middle_solve=None,
-                  device=None) -> Solver:
+                  group=None, device=None) -> Solver:
     """:func:`solver` on a ready batched oracle ``fg(x [B, n]) -> (fx [B],
     grad [B, n])``."""
-    gcp_fn = cauchy.GCP_IMPLS[_resolve_gcp(gcp)]
+    gcp_fn = cauchy.GCP_IMPLS[_resolve_gcp(gcp, group)]
     bmat.resolve_middle_solve(middle_solve)
     device = resolve_device(device)
     search = get_line_search(line_search)
+    if group is not None:
+        gcp_fn = functools.partial(gcp_fn, group=group)
+        search = functools.partial(search, group=group)
     fpast = params.past
+
+    def xx(x: Tensor) -> Tensor:
+        """The local partial ``x.x``, ``[B, 1]``."""
+        return torch.linalg.vecdot(x, x)[:, None]
 
     on_device = {}
 
@@ -151,19 +172,26 @@ def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
         batch = x0.shape[0]
         # Project the start into the box (LBFGSB.h:128).
         x0 = force_bounds(x0, lbb, ubb)
-        fx0, grad0 = fg(x0)
-        pg0 = proj_grad_norm(x0, grad0, lbb, ubb)
+        if group is None:
+            fx0, grad0 = fg(x0)
+            xnorm0 = _norm(x0)
+        else:
+            fx0, grad0, sq = coll.evaluate(fg, x0, lambda g: xx(x0), group,
+                                           "lbfgsb.init")
+            xnorm0 = torch.sqrt(sq[:, 0])
+        pg0 = proj_grad_norm(x0, grad0, lbb, ubb, group)
         fx_ring = torch.zeros((batch, max(fpast, 1)), dtype=x0.dtype,
                               device=device)
         if fpast > 0:
             fx_ring[:, 0] = fx0
         # Early exit if x0 is already a minimizer (LBFGSB.h:146-149).
         early = (pg0 <= params.epsilon) | \
-            (pg0 <= params.epsilon_rel * _norm(x0))
+            (pg0 <= params.epsilon_rel * xnorm0)
         hist0 = fresh(x0)
         cp0 = gcp_fn(hist0, x0, grad0, lbb, ubb)
         d0 = cp0.xcp - x0
-        d0_norm = _norm(d0)
+        d0_norm = _norm(d0) if group is None else \
+            coll.pnorm(d0, group, "lbfgsb.d0_norm")
         pos = d0_norm > 0.0
         drt0 = torch.where(pos[:, None],
                            d0 / torch.where(pos, d0_norm, 1.0)[:, None], d0)
@@ -178,17 +206,33 @@ def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
         """One outer iteration (LBFGSB.h:171-258)."""
         lbb, ubb = bounds(c.x)
         xp, gradp = c.x, c.grad
-        dg = torch.linalg.vecdot(c.grad, c.drt)
-        step_max = max_step_size(c.x, c.drt, lbb, ubb)
+        if group is None:
+            dg = torch.linalg.vecdot(c.grad, c.drt)
+            step_max = max_step_size(c.x, c.drt, lbb, ubb)
+        else:
+            # Both candidate directions' g.d and step caps up front: one
+            # sum and one min all-reduce, the rescue's included.
+            rescue = c.xcp - c.x
+            dg, dg_rescue = coll.pdot2(c.grad, c.drt, c.grad, rescue, group,
+                                       "lbfgsb.dg")
+            caps = coll.pmin(torch.stack(
+                [max_step_size(c.x, c.drt, lbb, ubb),
+                 max_step_size(c.x, rescue, lbb, ubb)], dim=1), group,
+                "lbfgsb.step_max")
+            step_max = caps[:, 0]
 
         # The pathological-direction rescue resets the direction and the
         # whole matrix (LBFGSB.h:181-197).
         patho = (dg >= 0.0) | (step_max <= params.min_step)
         drt = torch.where(patho[:, None], c.xcp - c.x, c.drt)
         hist = tree_select(patho, fresh(c.x), c.hist)
-        dg = torch.where(patho, torch.linalg.vecdot(c.grad, drt), dg)
-        step_max = torch.where(patho, max_step_size(c.x, drt, lbb, ubb),
-                               step_max)
+        if group is None:
+            dg = torch.where(patho, torch.linalg.vecdot(c.grad, drt), dg)
+            step_max = torch.where(patho, max_step_size(c.x, drt, lbb, ubb),
+                                   step_max)
+        else:
+            dg = torch.where(patho, dg_rescue, dg)
+            step_max = torch.where(patho, caps[:, 1], step_max)
 
         # The search, capped at step_max (LBFGSB.h:200-203).
         step_max = torch.clamp(step_max, max=params.max_step)
@@ -196,12 +240,21 @@ def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
         ls = search(fg, params, xp, drt, step_max, step0, c.fx, c.grad, dg,
                     active=~c.done)
         nfev = c.nfev + ls.nfev
-        projgnorm = proj_grad_norm(ls.x, ls.grad, lbb, ubb)
+        projgnorm = proj_grad_norm(ls.x, ls.grad, lbb, ubb, group)
         ls_fail = ls.status != Status.RUNNING
+        # Under a group ||x|| rides the history products' all-reduce.
+        s_vec, y_vec = ls.x - xp, ls.grad - gradp
+        products = None
+        if group is None:
+            xnorm = _norm(ls.x)
+        else:
+            *products, sq = bmat.correction_products(
+                hist.base, s_vec, y_vec, group, xx(ls.x))
+            xnorm = torch.sqrt(sq[:, 0])
 
         # Convergence tests (LBFGSB.h:212-230).
         conv_grad = (projgnorm <= params.epsilon) | \
-            (projgnorm <= params.epsilon_rel * _norm(ls.x))
+            (projgnorm <= params.epsilon_rel * xnorm)
         if fpast > 0:
             slot = (c.k % fpast).long()[:, None]
             fxd = c.fx_ring.gather(1, slot)[:, 0]
@@ -226,8 +279,8 @@ def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
                                         i32_like(Status.RUNNING, ls.fx)))))
 
         # The history update under the curvature gate (LBFGSB.h:232-238).
-        hist, _ = bmat.update_history_b(hist, ls.x - xp, ls.grad - gradp,
-                                        ~done, middle_solve)
+        hist, _ = bmat.update_history_b(hist, s_vec, y_vec, ~done,
+                                        middle_solve, products=products)
 
         # Projection, GCP and subspace step (LBFGSB.h:240-250); on the
         # terminating iteration the reference returns the search's x
@@ -237,7 +290,7 @@ def _build_solver(fg, lb, ub, params: LBFGSBParams, *,
         drt_next, sub_info = subspace.subspace_minimize(
             hist, x_next, cp.xcp, ls.grad, lbb, ubb, cp.vecc,
             cp.newact_mask, cp.free_mask, params.max_submin,
-            unroll=unroll_subspace, middle_solve=middle_solve)
+            unroll=unroll_subspace, middle_solve=middle_solve, group=group)
         hist = hist._replace(info=torch.maximum(hist.info, sub_info))
         return LBFGSBState(
             k=torch.where(done, c.k, c.k + 1),

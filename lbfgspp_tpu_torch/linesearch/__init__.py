@@ -7,7 +7,9 @@ batched unified signature
 
 with ``xp, drt, grad0 [B, n]``, ``fx0, dg0 [B]``, ``step0`` a [B] tensor or
 a scalar, and ``active [B]`` (or None for all) the instances to search for;
-the others return their starting point untouched.
+the others return their starting point untouched.  The keyword ``group``
+(a ``torch.distributed`` process group, default None) makes the vectors
+this rank's feature block: every reduction is then an all-reduce over it.
 """
 
 from .backtracking import backtracking

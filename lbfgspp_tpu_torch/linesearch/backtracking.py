@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import collectives as coll
 from ..params import (LINESEARCH_BACKTRACKING_ARMIJO,
                       LINESEARCH_BACKTRACKING_WOLFE)
 from ..types import LineSearchResult, Status, i32_like, tree_select
@@ -35,14 +36,15 @@ class _BTCarry(NamedTuple):
     nfev: Tensor
 
 
-def pre_checks(step0, fx0: Tensor, grad0: Tensor, drt: Tensor, active):
+def pre_checks(step0, fx0: Tensor, grad0: Tensor, drt: Tensor, active,
+               group=None):
     """The checks before the first trial, shared with bracketing:
     ``(step0 [B], dg_init [B], pre_status, stopped)``.  ``dg_init`` is
     recomputed from the inputs (:60)."""
     step0 = torch.as_tensor(step0, dtype=fx0.dtype,
                             device=fx0.device).expand(fx0.shape).clone()
     invalid = step0 <= 0.0
-    dg_init = torch.linalg.vecdot(grad0, drt)
+    dg_init = coll.pdot(grad0, drt, group, "linesearch.dg_init")
     not_descent = dg_init > 0.0
     pre_status = torch.where(
         invalid, i32_like(Status.LS_INVALID_STEP, fx0),
@@ -73,20 +75,25 @@ def run_trials(trial, c, max_linesearch: int):
 
 def backtracking(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
                  fx0: Tensor, grad0: Tensor, dg0: Tensor,
-                 active: Optional[Tensor] = None) -> LineSearchResult:
+                 active: Optional[Tensor] = None,
+                 group=None) -> LineSearchResult:
     """Batched backtracking search; ``step_max`` is ignored (L-BFGS only,
-    reference :32-33)."""
+    reference :32-33).  ``group``: the vectors are this rank's feature
+    block; a trial's value and directional derivative take one
+    all-reduce."""
     del step_max
     dec, inc = 0.5, 2.1
     step0, dg_init, pre_status, stopped = pre_checks(step0, fx0, grad0,
-                                                     drt, active)
+                                                     drt, active, group)
     test_decr = param.ftol * dg_init
 
     def trial(c: _BTCarry) -> _BTCarry:
         x = xp + c.step[:, None] * drt
-        fx, grad = fg(x)
+        fx, grad, dg = coll.evaluate(
+            fg, x, lambda g: torch.linalg.vecdot(g, drt)[:, None], group,
+            "backtracking.trial")
         decr_fail = (fx > fx0 + c.step * test_decr) | torch.isnan(fx)
-        dg = torch.where(decr_fail, c.dg, torch.linalg.vecdot(grad, drt))
+        dg = torch.where(decr_fail, c.dg, dg[:, 0])
 
         # Condition cascade (:76-107)
         if param.linesearch == LINESEARCH_BACKTRACKING_ARMIJO:

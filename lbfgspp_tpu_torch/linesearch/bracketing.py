@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import collectives as coll
 from ..params import (LINESEARCH_BACKTRACKING_ARMIJO,
                       LINESEARCH_BACKTRACKING_WOLFE)
 from ..types import LineSearchResult, Status, i32_like
@@ -37,18 +38,22 @@ class _BRCarry(NamedTuple):
 
 def bracketing(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
                fx0: Tensor, grad0: Tensor, dg0: Tensor,
-               active: Optional[Tensor] = None) -> LineSearchResult:
-    """Batched bracketing search; ``step_max`` is ignored (L-BFGS only)."""
+               active: Optional[Tensor] = None,
+               group=None) -> LineSearchResult:
+    """Batched bracketing search; ``step_max`` is ignored (L-BFGS only).
+    ``group`` as in :func:`.backtracking.backtracking`."""
     del step_max
     step0, dg_init, pre_status, stopped = pre_checks(step0, fx0, grad0,
-                                                     drt, active)
+                                                     drt, active, group)
     test_decr = param.ftol * dg_init
 
     def trial(c: _BRCarry) -> _BRCarry:
         x = xp + c.step[:, None] * drt
-        fx, grad = fg(x)
+        fx, grad, dg = coll.evaluate(
+            fg, x, lambda g: torch.linalg.vecdot(g, drt)[:, None], group,
+            "bracketing.trial")
         decr_fail = (fx > fx0 + c.step * test_decr) | ~torch.isfinite(fx)
-        dg = torch.where(decr_fail, c.dg, torch.linalg.vecdot(grad, drt))
+        dg = torch.where(decr_fail, c.dg, dg[:, 0])
 
         # Range / condition update (:79-111)
         if param.linesearch == LINESEARCH_BACKTRACKING_ARMIJO:

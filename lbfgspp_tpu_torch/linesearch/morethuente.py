@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import collectives as coll
 from ..types import LineSearchResult, Status, i32_like, tree_select
 
 Tensor = torch.Tensor
@@ -171,9 +172,12 @@ class _MTCarry(NamedTuple):
 
 def morethuente(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
                 fx0: Tensor, grad0: Tensor, dg0: Tensor,
-                active: Optional[Tensor] = None) -> LineSearchResult:
+                active: Optional[Tensor] = None,
+                group=None) -> LineSearchResult:
     """Batched More-Thuente search from ``xp [B, n]`` along ``drt``;
-    ``step_max`` and ``step0`` are scalars or [B] tensors."""
+    ``step_max`` and ``step0`` are scalars or [B] tensors.  ``group``: the
+    vectors are this rank's feature block; a trial's value and
+    directional derivative take one all-reduce."""
     dtype, dev = xp.dtype, xp.device
 
     def per_instance(v):
@@ -220,8 +224,10 @@ def morethuente(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
     def trial(c: _MTCarry) -> _MTCarry:
         # Trial evaluation (:412-414)
         x = xp + c.step[:, None] * drt
-        fx, grad = fg(x)
-        dg = torch.linalg.vecdot(grad, drt)
+        fx, grad, dg = coll.evaluate(
+            fg, x, lambda g: torch.linalg.vecdot(g, drt)[:, None], group,
+            "morethuente.trial")
+        dg = dg[:, 0]
 
         psit = fx - fx_init - c.step * test_decr
         dpsit = dg - test_decr

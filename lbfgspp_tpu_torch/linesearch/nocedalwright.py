@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..params import LINESEARCH_BACKTRACKING_STRONG_WOLFE
+from ..parallel import collectives as coll
 from ..types import LineSearchResult, Status, i32_like, tree_select
 
 Tensor = torch.Tensor
@@ -66,9 +67,12 @@ class _NWCarry(NamedTuple):
 
 def nocedalwright(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
                   fx0: Tensor, grad0: Tensor, dg0: Tensor,
-                  active: Optional[Tensor] = None) -> LineSearchResult:
+                  active: Optional[Tensor] = None,
+                  group=None) -> LineSearchResult:
     """Batched Nocedal-Wright search; ``step_max`` is ignored (L-BFGS
-    only)."""
+    only).  ``group``: the vectors are this rank's feature block; a
+    trial's value and directional derivative take one all-reduce
+    (lbfgspp_tpu/linesearch/nocedalwright.py:110, :153)."""
     del step_max
     if param.linesearch != LINESEARCH_BACKTRACKING_STRONG_WOLFE:
         raise ValueError(
@@ -109,8 +113,10 @@ def nocedalwright(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
                            _quad_interp(c.step_lo, c.step_hi, c.fx_lo,
                                         c.fx_hi, c.dg_lo))
         x = xp + step[:, None] * drt
-        fx, grad = fg(x)
-        dg = torch.linalg.vecdot(grad, drt)
+        fx, grad, dg = coll.evaluate(
+            fg, x, lambda g: torch.linalg.vecdot(g, drt)[:, None], group,
+            "nocedalwright.trial")
+        dg = dg[:, 0]
         nfev = c.nfev + 1
 
         # Bracketing phase (reference :143-198).

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import collectives as coll
 from ..types import LineSearchResult, Status, i32_like
 from .backtracking import run_trials
 
@@ -42,7 +43,8 @@ def make_speculative(k: int = 8, dec: float = 0.5, inc: float = 2.0):
 
     def speculative(fg, param, xp: Tensor, drt: Tensor, step_max, step0,
                     fx0: Tensor, grad0: Tensor, dg0: Tensor,
-                    active: Optional[Tensor] = None) -> LineSearchResult:
+                    active: Optional[Tensor] = None,
+                    group=None) -> LineSearchResult:
         dtype, dev = xp.dtype, xp.device
         batch, n = xp.shape
         step0 = torch.as_tensor(step0, dtype=dtype, device=dev).expand(
@@ -70,10 +72,16 @@ def make_speculative(k: int = 8, dec: float = 0.5, inc: float = 2.0):
             raw = c.base[None, :] * ladder                          # [K, B]
             steps = torch.minimum(torch.clamp(raw, min=lo), hi)
             xs = xp[None] + steps[:, :, None] * drt[None]
-            fxs, grads = fg(xs.reshape(k * batch, n))
+            # The K candidates' values and directional derivatives take
+            # one all-reduce under a group (speculative.py:126-129).
+            fxs, grads, dgs = coll.evaluate(
+                fg, xs.reshape(k * batch, n),
+                lambda g: torch.linalg.vecdot(
+                    g.reshape(k, batch, n), drt[None]).reshape(-1, 1),
+                group, "speculative.trial")
             fxs = fxs.reshape(k, batch)
             grads = grads.reshape(k, batch, n)
-            dgs = torch.linalg.vecdot(grads, drt[None])
+            dgs = dgs.reshape(k, batch)
 
             in_range = (raw >= lo) & (raw <= hi)
             armijo = (fxs <= fx0 + steps * test_decr) & \

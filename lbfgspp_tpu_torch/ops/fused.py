@@ -43,6 +43,7 @@ import functools
 
 import torch
 
+from ..parallel import collectives as coll
 from ..utils import cuda_build
 
 Tensor = torch.Tensor
@@ -203,22 +204,15 @@ def combine(s: Tensor, y: Tensor, v: Tensor, alpha: Tensor, beta: Tensor,
     return (a / th) * v + rows_combine(s, w_s) + rows_combine(y, w_y)
 
 
-def two_loop_plain(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, a: float,
-                   mode: str = "sweeps") -> Tensor:
-    """The kernel's function in plain PyTorch, batched.  ``sweeps`` is the
-    Pallas kernel's ``_sweep_math`` recursion
-    (lbfgspp_tpu/ops/fused.py:78-101); ``rinv`` is
-    lbfgspp_tpu/ops/history.py:358-372.  Every op rounds to v's dtype (in
-    bf16, per op as the Pallas kernel's bf16 mode does); s and y may be
-    stored narrower than v (bf16 rows of an f32 solve), and are then
-    widened per element, as the JAX package's XLA path promotes them
-    (history.py:336-418)."""
+def _coefficients(sv, yv, ys, theta, ptr, ncorr, sy, yy, rinv, a: float,
+                  mode: str, dtype):
+    """The two-loop coefficients ``(alpha, beta, valid)`` from the row
+    products ``sv = S v`` and ``yv = Y v`` ([B, m]): the recursion both
+    the plain version and the grouped route run on replicated state."""
     m = ys.shape[-1]
     th = theta[:, None]
     msy, msyT, ys_safe, vmask, valid = _prep_masks(ys, ptr, ncorr, sy,
-                                                   v.dtype)
-    sv = rows_dot(s, v)
-    yv = rows_dot(y, v)
+                                                   dtype)
     if mode == "rinv":
         alpha = _matvec(rinv, a * sv)
         base = (a * yv - _matvec(yy, alpha)) / th
@@ -236,6 +230,30 @@ def two_loop_plain(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, a: float,
     else:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got "
                          f"{mode!r}")
+    return alpha, beta, valid
+
+
+def two_loop_plain(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, a: float,
+                   mode: str = "sweeps", group=None) -> Tensor:
+    """The kernel's function in plain PyTorch, batched.  ``sweeps`` is the
+    Pallas kernel's ``_sweep_math`` recursion
+    (lbfgspp_tpu/ops/fused.py:78-101); ``rinv`` is
+    lbfgspp_tpu/ops/history.py:358-372.  Every op rounds to v's dtype (in
+    bf16, per op as the Pallas kernel's bf16 mode does); s and y may be
+    stored narrower than v (bf16 rows of an f32 solve), and are then
+    widened per element, as the JAX package's XLA path promotes them
+    (history.py:336-418).
+
+    ``group``: the rows and ``v`` are this rank's feature block; the
+    local ``S v`` and ``Y v`` ride ONE all-reduce of ``[B, 2m]``
+    (lbfgspp_tpu/ops/history.py:332-337) and the recursion runs on the
+    replicated coefficients."""
+    sv = rows_dot(s, v)
+    yv = rows_dot(y, v)
+    if group is not None:
+        sv, yv = coll.pfused([sv, yv], group, "history.apply_hv")
+    alpha, beta, valid = _coefficients(sv, yv, ys, theta, ptr, ncorr, sy,
+                                       yy, rinv, a, mode, v.dtype)
     return combine(s, y, v, alpha, beta, valid, theta, a)
 
 
@@ -582,7 +600,10 @@ def route(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, mode):
       slower than the plain version's whole-card products (B=1, n=2^27,
       bf16 rows: 5.8 s against 22 ms); the JAX package never sends long
       rows to its Pallas kernel either, which does not tile n
-      (lbfgspp_tpu/ops/fused.py:56-70).
+      (lbfgspp_tpu/ops/fused.py:56-70);
+
+    and :func:`two_loop` adds ``"sharded"`` for a call of a feature-split
+    solve, before this function is asked.
     """
     batch, m, n = s.shape
     kind = kind_of(s.dtype, v.dtype)
@@ -646,7 +667,7 @@ def _two_loop_cuda(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, a, mode,
 
 
 def two_loop(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, a: float,
-             mode: str = "sweeps") -> Tensor:
+             mode: str = "sweeps", group=None) -> Tensor:
     """Batched ``a * H * v`` from the raw ring state: ``s, y [B, m, n]``,
     ``ys [B, m]``, ``theta [B]``, ``ptr, ncorr [B]`` int32, ``sy, yy
     [B, m, m]``, ``rinv [B, m, m]`` (``rinv`` mode only), ``v [B, n]``.
@@ -659,12 +680,23 @@ def two_loop(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, a: float,
     ``two_loop.launches``, and by instantiation in
     ``two_loop.kind_launches``), else the plain version (counted in
     ``two_loop.plain_routes``; ``two_loop.plain_reasons`` by reason).
-    Nothing is caught: a kernel that fails to build or launch raises."""
+    Nothing is caught: a kernel that fails to build or launch raises.
+
+    ``group``: the rows and ``v`` are this rank's feature block of a
+    feature-split solve; the call takes the plain version with one
+    all-reduce (reason ``"sharded"``), as the JAX package turns its Pallas
+    kernel off under an axis name (lbfgspp_tpu/ops/fused.py:316-324): the
+    kernel fuses the dots that the all-reduce must split."""
     if v.device.type == "cpu":
         return two_loop_plain(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v,
-                              a, mode)
+                              a, mode, group)
     if v.device.type != "cuda":
         raise ValueError(f"two_loop: no kernel for device {v.device}")
+    if group is not None:
+        two_loop.plain_routes += 1
+        two_loop.plain_reasons["sharded"] += 1
+        return two_loop_plain(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v,
+                              a, mode, group)
     plan, reason = route(s, y, ys, theta, ptr, ncorr, sy, yy, rinv, v, mode)
     if plan is None:
         two_loop.plain_routes += 1

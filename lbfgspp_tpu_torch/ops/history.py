@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import fused
+from ..parallel import collectives as coll
 from ..types import matmul_tf32, resolve_device
 
 Tensor = torch.Tensor
@@ -79,25 +80,37 @@ def init_history(batch: int, n: int, m: int, dtype=torch.float32, *,
 
 
 @full_precision()
-def correction_products(hist: LBFGSHistory, s: Tensor, y: Tensor):
+def correction_products(hist: LBFGSHistory, s: Tensor, y: Tensor,
+                        group=None, extra: Optional[Tensor] = None):
     """Every inner product a correction update needs, batched.
 
-    Returns ``(yx, sx, pair)``: ``yx = [Y@y, Y@s]`` and ``sx = [S@y, S@s]``
-    (each [B, m, 2]) and ``pair = (s.y, y.y, s.s)`` (each [B]), in the
-    incoming pair's dtype; the new pair's products use the full-precision
+    Returns ``(yx, sx, pair, extra)``: ``yx = [Y@y, Y@s]`` and ``sx =
+    [S@y, S@s]`` (each [B, m, 2]) and ``pair = (s.y, y.y, s.s)`` (each
+    [B]), in the incoming pair's dtype; the new pair's products use the
+    full-precision
     s and y, and rows stored at reduced precision are widened in chunks
     along n (no widened copy of the whole history; the JAX package splits
     its product at n >= 2^20 for the same reason).  Three
     batched products instead of one over a concatenated [B, 2m+2, n]
     operand: the same dots, without copying the history every iteration
     (the JAX package takes this form for n >= 2^20, history.py:122-136).
+
+    ``group``: the rows, s and y are this rank's feature block; the three
+    products and the caller's ``extra`` local sums ([B, k], or None) ride
+    ONE all-reduce, the fused ``[2m+2, 2]`` product of
+    lbfgspp_tpu/ops/history.py:137-138 (XLA folds the convergence norms
+    into it as well).  ``extra`` comes back summed.
     """
     rhs = torch.stack([y, s], dim=1)                 # [B, 2, n]
     rt = rhs.transpose(1, 2)                         # [B, n, 2]
     yx = fused.rows_times(hist.y, rt)
     sx = fused.rows_times(hist.s, rt)
     pp = torch.bmm(rhs, rt)                          # [B, 2, 2]
-    return yx, sx, (pp[:, 1, 0], pp[:, 0, 0], pp[:, 1, 1])
+    if group is not None:
+        parts = [yx, sx, pp] + ([] if extra is None else [extra])
+        yx, sx, pp, *rest = coll.pfused(parts, group, "history.products")
+        extra = rest[0] if rest else None
+    return yx, sx, (pp[:, 1, 0], pp[:, 0, 0], pp[:, 1, 1]), extra
 
 
 def _write_correction(hist: LBFGSHistory, s: Tensor, y: Tensor,
@@ -157,27 +170,32 @@ def _write_correction(hist: LBFGSHistory, s: Tensor, y: Tensor,
 
 
 def add_correction(hist: LBFGSHistory, s: Tensor, y: Tensor,
-                   accept: Tensor) -> LBFGSHistory:
+                   accept: Tensor, group=None) -> LBFGSHistory:
     """Masked write of one correction pair per instance
     (BFGSMat::add_correction, BFGSMat.h:81-97); an instance whose
     ``accept`` is False keeps its state unchanged."""
-    yx, sx, pair = correction_products(hist, s, y)
+    yx, sx, pair, _ = correction_products(hist, s, y, group)
     return _write_correction(hist, s, y, accept, yx, sx, pair)
 
 
 def update_history(hist: LBFGSHistory, s: Tensor, y: Tensor,
-                   allow: Tensor):
+                   allow: Tensor, group=None, products=None):
     """Curvature gate ``s'y > eps * y'y`` (LBFGS.h:161) under the caller's
-    ``allow`` mask, plus the write.  Returns ``(new_hist, accept)``."""
+    ``allow`` mask, plus the write.  Returns ``(new_hist, accept)``.
+    ``products``: ``(yx, sx, pair)`` of :func:`correction_products` when
+    the caller took them already (to fold its own sums into their
+    all-reduce)."""
     eps = torch.finfo(s.dtype).eps
-    yx, sx, pair = correction_products(hist, s, y)
+    if products is None:
+        products = correction_products(hist, s, y, group)[:3]
+    yx, sx, pair = products
     sy_new, yy_new, _ = pair
     accept = allow & (sy_new > eps * yy_new)
     return _write_correction(hist, s, y, accept, yx, sx, pair), accept
 
 
 def apply_hv(hist: LBFGSHistory, v: Tensor, a: float,
-             tri: str = "sweeps") -> Tensor:
+             tri: str = "sweeps", group=None) -> Tensor:
     """Two-loop recursion ``a * H * v`` for every instance (BFGSMat.h:
     276-302), in the compact Gram-cached form of
     lbfgspp_tpu/ops/history.py:289-418.
@@ -188,6 +206,11 @@ def apply_hv(hist: LBFGSHistory, v: Tensor, a: float,
     the CUDA kernel for a CUDA tensor; ``"doubling"`` (repeated squaring
     of the nilpotent series) stays plain PyTorch, as the TPU kernel never
     computed it.
+
+    ``group``: the rows and ``v`` are this rank's feature block; the local
+    ``S v`` and ``Y v`` take ONE all-reduce of ``[B, 2m]`` and the
+    recursion and the combine run on the replicated coefficients
+    (lbfgspp_tpu/ops/history.py:324-337), never in the kernel.
     """
     if tri in ("sweeps", "rinv"):
         if tri == "rinv" and hist.rinv is None:
@@ -195,7 +218,7 @@ def apply_hv(hist: LBFGSHistory, v: Tensor, a: float,
                              "init_history(with_rinv=True)")
         return fused.two_loop(hist.s, hist.y, hist.ys, hist.theta, hist.ptr,
                               hist.ncorr, hist.sy, hist.yy, hist.rinv, v,
-                              a, tri)
+                              a, tri, group)
     if tri != "doubling":
         raise ValueError(f"tri must be 'sweeps', 'rinv' or 'doubling', got "
                          f"{tri!r}")
@@ -206,6 +229,8 @@ def apply_hv(hist: LBFGSHistory, v: Tensor, a: float,
             hist.ys, hist.ptr, hist.ncorr, hist.sy, v.dtype)
         sv = fused.rows_dot(hist.s, v)
         yv = fused.rows_dot(hist.y, v)
+        if group is not None:
+            sv, yv = coll.pfused([sv, yv], group, "history.apply_hv")
         n_steps = max(1, (m - 1).bit_length())
 
         def tri_solve(nmat, rhs):

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from . import bmat
+from ..parallel import collectives as coll
 from ..types import tree_select
 
 Tensor = torch.Tensor
@@ -45,14 +46,15 @@ class _Carry(NamedTuple):
 
 
 def _all(mask: Tensor, test: Tensor) -> Tensor:
-    """Per instance, ``test`` holds wherever ``mask`` does."""
+    """Per instance, ``test`` holds wherever ``mask`` does (on this
+    rank's coordinates)."""
     return torch.where(mask, test, True).all(dim=1)
 
 
 def subspace_minimize(bh: bmat.BHistory, x0: Tensor, xcp: Tensor, g: Tensor,
                       lb: Tensor, ub: Tensor, wd: Tensor,
                       newact_mask: Tensor, free_mask: Tensor, maxit: int,
-                      unroll: bool = False, middle_solve=None):
+                      unroll: bool = False, middle_solve=None, group=None):
     """``(drt, info)``: the search direction ``xsm - x0`` of every instance
     (SubspaceMin::subspace_minimize, SubspaceMin.h:122-302;
     lbfgspp_tpu/ops/subspace.py:52-185) and ``info > 0`` where one of its
@@ -60,24 +62,32 @@ def subspace_minimize(bh: bmat.BHistory, x0: Tensor, xcp: Tensor, g: Tensor,
 
     ``unroll=True`` runs exactly ``maxit`` lockstep iterations, the
     finished instances frozen, with no exit test read back: the same
-    values."""
+    values.
+
+    ``group``: the vectors and masks are this rank's feature block; every
+    set test is a global AND and every product one all-reduce
+    (lbfgspp_tpu/ops/subspace.py:52-185), so the loop's exit reads
+    replicated flags only."""
     eps = torch.finfo(x0.dtype).eps
     theta = bh.theta[:, None]
 
     drt0 = xcp - x0
-    any_free = free_mask.any(dim=1)
+    any_free = coll.pall(~free_mask.any(dim=1), group,
+                         "subspace.any_free").logical_not()
 
     # The linear term c = F'BAb + F'g and the shifted bounds
     # (SubspaceMin.h:146-156).
-    vecc = bmat.compute_ftbab(bh, free_mask, newact_mask, wd, drt0)
+    vecc = bmat.compute_ftbab(bh, free_mask, newact_mask, wd, drt0, group)
     vecc = torch.where(free_mask, vecc + g, 0.0)
     vecl = torch.where(free_mask, lb - x0, 0.0)
     vecu = torch.where(free_mask, ub - x0, 0.0)
 
     # The unconstrained solve y = -inv(B[F, F]) c (SubspaceMin.h:157-159)
     # and the feasibility shortcut (SubspaceMin.h:160-166).
-    y0, info0 = bmat.solve_ptbp(bh, free_mask, -vecc, middle_solve)
-    feasible = _all(free_mask, (y0 >= vecl) & (y0 <= vecu))
+    y0, info0 = bmat.solve_ptbp(bh, free_mask, -vecc, middle_solve, group,
+                                "subspace.solve_y0")
+    feasible = coll.pall(_all(free_mask, (y0 >= vecl) & (y0 <= vecu)),
+                         group, "subspace.feasible")
 
     def body(c: _Carry) -> _Carry:
         # The L/U/P partition with the reference's tie-breaking
@@ -93,22 +103,26 @@ def subspace_minimize(bh: bmat.BHistory, x0: Tensor, xcp: Tensor, g: Tensor,
         # y[P] = -inv(B[P,P]) (B[P,L] l + B[P,U] u + c[P])
         # (SubspaceMin.h:226-245)
         rhs = torch.where(p_set, vecc, 0.0)
-        rhs = rhs + bmat.apply_ptbqv(bh, p_set, l_set, vecl)
-        rhs = rhs + bmat.apply_ptbqv(bh, p_set, u_set, vecu)
-        yp, info_p = bmat.solve_ptbp(bh, p_set, -rhs, middle_solve)
+        rhs = rhs + bmat.apply_ptbqv(bh, p_set, l_set, vecl, group,
+                                     "subspace.bpl")
+        rhs = rhs + bmat.apply_ptbqv(bh, p_set, u_set, vecu, group,
+                                     "subspace.bpu")
+        yp, info_p = bmat.solve_ptbp(bh, p_set, -rhs, middle_solve, group,
+                                     "subspace.solve_yp")
         y = torch.where(p_set, yp, y)
 
         # lambda[L] = B[L,F] y + c[L]; mu[U] = -B[U,F] y - c[U]
         # (SubspaceMin.h:247-268), B[Q,F] y = theta y[Q] - (Q'W M W'F) y
-        fy = bmat.apply_wtpv(bh, free_mask, y)
+        fy = bmat.apply_wtpv(bh, free_mask, y, group, "subspace.fy")
         wm_l = bmat.apply_ptwmv(bh, l_set, fy, -1.0)
         lam = torch.where(l_set, wm_l + vecc + theta * y, lam)
         wm_u = bmat.apply_ptwmv(bh, u_set, fy, -1.0)
         mu = torch.where(u_set, -(wm_u + vecc + theta * y), mu)
 
         # Convergence of the three sets (SubspaceMin.h:271-272)
-        conv = _all(l_set, lam >= 0.0) & _all(u_set, mu >= 0.0) & \
-            _all(p_set, (y >= vecl) & (y <= vecu))
+        conv = coll.pall(_all(l_set, lam >= 0.0) & _all(u_set, mu >= 0.0) &
+                         _all(p_set, (y >= vecl) & (y <= vecu)),
+                         group, "subspace.converged")
         return _Carry(y=y, lam=lam, mu=mu, k=c.k + 1, converged=conv,
                       info=torch.maximum(c.info, info_p))
 
@@ -135,10 +149,10 @@ def subspace_minimize(bh: bmat.BHistory, x0: Tensor, xcp: Tensor, g: Tensor,
     failed = run_loop & (~out.converged)
     y_proj = torch.minimum(torch.maximum(out.y, vecl), vecu)
     drt_a = torch.where(free_mask, y_proj, drt0)
-    dg_a = (drt_a * g).sum(dim=1)
     fb_proj = torch.minimum(torch.maximum(y0, vecl), vecu)
     drt_b = torch.where(free_mask, fb_proj, drt0)
-    dg_b = (drt_b * g).sum(dim=1)
+    dg_a, dg_b = coll.pfused([(drt_a * g).sum(dim=1), (drt_b * g).sum(dim=1)],
+                             group, "subspace.fallback")
     drt_c = torch.where(free_mask, y0, drt0)
     drt_failed = torch.where((dg_a <= -eps)[:, None], drt_a,
                              torch.where((dg_b <= -eps)[:, None], drt_b,

@@ -34,6 +34,7 @@ import torch
 
 from .lbfgs import as_batch, unbatch
 from .ops import history as hist_ops
+from .parallel import collectives as coll
 from .params import LBFGSParams
 from .types import (SolveResult, Status, data_fun_and_grad, freeze_when,
                     i32_like, matmul_tf32, resolve_device, tree_select)
@@ -153,29 +154,55 @@ def minimize_owlqn(fun: Optional[Callable] = None,
 
 
 def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams,
-           history_dtype=None) -> SolveResult:
+           history_dtype=None, group=None) -> SolveResult:
     """One OWL-QN run of the batched oracle ``fg`` from ``x0 [B, n]``;
-    ``history_dtype``: the rows' storage dtype."""
+    ``history_dtype``: the rows' storage dtype.
+
+    ``group``: ``x0``, ``lam`` and the oracle's gradient are this rank's
+    feature block.  The L1 term's sum rides the objective's all-reduce,
+    and so do the start's norms and a trial's Armijo decrease; each
+    iteration adds one for ``pg.d`` and ``||d||``, the history's fused
+    products (with the convergence norms) and the two-loop recursion:
+    the JAX package's five (tests/test_collective_audit.py:154-173)."""
     batch, n = x0.shape
     dtype, device = x0.dtype, x0.device
     penalized = lam > 0
     fpast = params.past
     ftol = params.ftol
 
-    def full_obj(x):
-        loss, g = fg(x)
+    def full_obj(x, extra=None, site="owlqn.objective"):
+        """``(loss + l1 term, loss gradient, sums of extra(g))``."""
+        def sums(g):
+            l1 = (lam * x.abs()).sum(-1)[:, None]
+            return l1 if extra is None else torch.cat([l1, extra(g)], 1)
+        loss, g, red = coll.evaluate(fg, x, sums, group, site)
         COUNTS["evaluations"] += 1
-        return loss + (lam * x.abs()).sum(-1), g
+        return loss + red[:, 0], g, red[:, 1:]
 
-    def converged(gnorm, x):
+    def sq_parts(pg, x):
+        """The local partials ``[pg.pg, x.x]``, ``[B, 2]``."""
+        return torch.stack([torch.linalg.vecdot(pg, pg),
+                            torch.linalg.vecdot(x, x)], dim=1)
+
+    def norms(pg, x, sq):
+        """``(||pg||, ||x||)``: from the vectors without a group, else
+        from their global squared sums ``sq``."""
+        if group is None:
+            return _norm(pg), _norm(x)
+        return torch.sqrt(sq[:, 0]), torch.sqrt(sq[:, 1])
+
+    def converged(gnorm, xnorm):
         return (gnorm <= params.epsilon) | \
-            (gnorm <= params.epsilon_rel * _norm(x))
+            (gnorm <= params.epsilon_rel * xnorm)
 
     def init() -> OWLQNState:
-        fx0, g0 = full_obj(x0)
+        fx0, g0, sq = full_obj(
+            x0, None if group is None else
+            (lambda g: sq_parts(pseudo_gradient(x0, g, lam), x0)),
+            "owlqn.init")
         pg0 = pseudo_gradient(x0, g0, lam)
-        gnorm0 = _norm(pg0)
-        early = converged(gnorm0, x0)
+        gnorm0, xnorm0 = norms(pg0, x0, sq)
+        early = converged(gnorm0, xnorm0)
         fx_ring = torch.zeros((batch, max(fpast, 1)), dtype=dtype,
                               device=device)
         if fpast > 0:
@@ -196,13 +223,17 @@ def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams,
         # Direction from the pseudo-gradient through the loss-curvature
         # history, then orthant alignment: zero every component that is
         # not a descent component of the pseudo-gradient (:209-213).
-        d = hist_ops.apply_hv(c.hist, c.pgrad, -1.0, tri="sweeps")
+        d = hist_ops.apply_hv(c.hist, c.pgrad, -1.0, tri="sweeps",
+                              group=group)
         d = torch.where(penalized & (d * c.pgrad >= 0), 0.0, d)
         # Chosen orthant: the current sign, else the pseudo-descent sign.
         xi = torch.where(c.x != 0, torch.sign(c.x), torch.sign(-c.pgrad))
-        dg = torch.linalg.vecdot(c.pgrad, d)
+        if group is None:
+            dg, dnorm = torch.linalg.vecdot(c.pgrad, d), _norm(d)
+        else:
+            dg, dd = coll.pdot2(c.pgrad, d, d, d, group, "owlqn.direction")
+            dnorm = torch.sqrt(dd)
         bad_dir = dg >= 0
-        dnorm = _norm(d)
         step0 = torch.where(
             c.k == 1, 1.0 / torch.clamp(dnorm, min=torch.finfo(dtype).tiny),
             torch.ones_like(dnorm))
@@ -212,9 +243,11 @@ def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams,
             # an exact +0.0 (a literal zero, as :223-224 writes).
             xt = c.x + s.step[:, None] * d
             xt = torch.where(penalized & (xt * xi <= 0), 0.0, xt)
-            ft, gt = full_obj(xt)
             # Armijo on the projected step: f(xt) <= f(x) + ftol pg.(xt-x)
-            dec = torch.linalg.vecdot(c.pgrad, xt - c.x)
+            ft, gt, dec = full_obj(
+                xt, lambda g: torch.linalg.vecdot(c.pgrad, xt - c.x)[:, None],
+                "owlqn.trial")
+            dec = dec[:, 0]
             ok = ft <= c.fx + ftol * dec
             it = s.it + 1
             exhausted = it >= params.max_linesearch
@@ -250,8 +283,15 @@ def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams,
         nfev = c.nfev + ls.it
 
         pg1 = pseudo_gradient(ls.x, ls.grad, lam)
-        gnorm1 = _norm(pg1)
-        conv_grad = converged(gnorm1, ls.x)
+        # Curvature from LOSS gradients (the L1 part has none); under a
+        # group the convergence norms ride the products' all-reduce.
+        s_vec, y_vec = ls.x - c.x, ls.grad - c.grad
+        products, sq = None, None
+        if group is not None:
+            *products, sq = hist_ops.correction_products(
+                c.hist, s_vec, y_vec, group, sq_parts(pg1, ls.x))
+        gnorm1, xnorm1 = norms(pg1, ls.x, sq)
+        conv_grad = converged(gnorm1, xnorm1)
 
         if fpast > 0:
             slot = (c.k % fpast).long()[:, None]
@@ -277,9 +317,8 @@ def _solve(fg, x0: Tensor, lam: Tensor, params: LBFGSParams,
                                         i32_like(Status.MAX_ITERATIONS, c.k),
                                         i32_like(Status.RUNNING, c.k)))))
 
-        # Curvature from LOSS gradients (the L1 part has none).
-        hist, _ = hist_ops.update_history(c.hist, ls.x - c.x,
-                                          ls.grad - c.grad, ~ls_fail)
+        hist, _ = hist_ops.update_history(c.hist, s_vec, y_vec, ~ls_fail,
+                                          products=products)
         return OWLQNState(
             k=torch.where(done, c.k, c.k + 1), x=ls.x, fx=ls.fx,
             grad=ls.grad, pgrad=pg1, gnorm=gnorm1, hist=hist,

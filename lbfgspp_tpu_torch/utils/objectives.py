@@ -83,3 +83,30 @@ def rosenbrock_chained_fg(x: Tensor):
     inner = 16.0 * (x[1:-1] * x[1:-1] - x[2:]) * x[1:-1]  # slots 1..n-2
     tail = mid + torch.cat([inner, torch.zeros_like(x[:1])])
     return fx, torch.cat([g0.reshape(1), tail])
+
+
+def make_sharded_logreg(a_local: Tensor, b: Tensor, group=None):
+    """Feature-split logistic regression for
+    :func:`..parallel.sharded.minimize_sharded`
+    (lbfgspp_tpu/utils/objectives.py:95-118).
+
+    ``a_local`` is this rank's ``[rows, n_local]`` block of the design
+    matrix (features split), ``b`` the replicated +/-1 labels.  The logit
+    is a dot over all features, so each rank contributes a partial product
+    and ONE all-reduce of the ``[B, rows]`` logits makes them global; the
+    loss is then replicated and the local gradient is ``A_local' d``.  The
+    oracle is batched, ``w_local [B, n_local] -> (fx [B], grad_local)``,
+    as every oracle with its own collectives is; its all-reduce has a
+    backward (:func:`..parallel.collectives.psum_grad`), so the implicit
+    adjoint can differentiate the gradient it returns."""
+    from ..parallel import collectives as coll
+
+    def fg(w_local: Tensor):
+        logits = coll.psum_grad(w_local @ a_local.T, group,
+                                "logreg.logits")
+        z = -b * logits
+        fx = torch.logaddexp(torch.zeros_like(z), z).sum(dim=-1)
+        dlogit = -b * torch.sigmoid(z)
+        return fx, dlogit @ a_local
+
+    return fg

@@ -100,9 +100,10 @@ def test_entry_points_raise_without_cuda(name, monkeypatch):
     ("deep_iters", 60), ("deep_selection", "hstep"),
 ])
 def test_unported_minimize_batched_options_raise(option, value):
-    """Of the JAX package's minimize_batched options only ``mesh`` still
-    waits for a later slice and raises; every other one is taken, and its
-    default (the JAX package's) leaves the result as it is without it."""
+    """Every one of the JAX package's minimize_batched options is taken
+    (``mesh`` was the last to raise), and its default (the JAX
+    package's) leaves the result as it is without it; ``mesh`` as a
+    process group of one rank gives the result without it too."""
     x0 = torch.zeros(2, 4)
     default = inspect.signature(T.minimize_batched).parameters[option]
 
@@ -115,8 +116,14 @@ def test_unported_minimize_batched_options_raise(option, value):
     same = call(**{option: default.default})
     assert all(torch.equal(a, b) for a, b in zip(plain[:7], same[:7]))
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call(mesh=value)
+        import torch.distributed as dist
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            meshed = call(mesh=dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+        assert all(torch.equal(a, b) for a, b in zip(plain[:7], meshed[:7]))
     else:
         assert torch.isfinite(call(**{option: value}).x).all()
 

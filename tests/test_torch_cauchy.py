@@ -166,6 +166,16 @@ def test_outward_instance_crosses_nothing(case):
         assert torch.equal(res.xcp[b], torch.as_tensor(x0[b]))
 
 
-def test_walk_family_raises():
-    with pytest.raises(NotImplementedError):
-        tcauchy.GCP_IMPLS["walk_auto"](None, None, None, None, None)
+def test_walk_family_raises(case):
+    """The sortless walks no longer raise: each entry of the walk family
+    in ``GCP_IMPLS`` gives the scan's index sets and its xcp on the batch
+    (tests/test_torch_cauchy_walk.py holds them against JAX's)."""
+    th, jh, oh, x0, g, lb, ub = case
+    args = as_t(x0, g, lb, ub)
+    scan = tcauchy.cauchy_point(th, *args)
+    for name in ("walk", "walk_chunked", "walk_auto"):
+        res = tcauchy.GCP_IMPLS[name](th, *args)
+        assert torch.equal(res.newact_mask, scan.newact_mask), name
+        assert torch.equal(res.free_mask, scan.free_mask), name
+        np.testing.assert_allclose(res.xcp.numpy(), scan.xcp.numpy(),
+                                   rtol=1e-10, atol=1e-12)

@@ -195,6 +195,15 @@ def test_pathological_direction_resets_the_matrix():
 
 
 def test_walk_gcps_raise():
-    with pytest.raises(NotImplementedError):
-        T.minimize_b(to.rosenbrock, torch.full((4,), 3.0), 2.0, 4.0,
-                     gcp="walk", device="cpu")
+    """The walk GCPs no longer raise: a solve through each takes the
+    scan's iterations to the scan's solution."""
+    x0 = torch.full((4,), 3.0, dtype=torch.float64)
+    p = T.LBFGSBParams(epsilon=1e-8, max_iterations=100)
+    scan = T.minimize_b(to.rosenbrock, x0, 2.0, 4.0, p, gcp="scan",
+                        device="cpu")
+    for gcp in ("walk", "walk_chunked", "walk_auto"):
+        res = T.minimize_b(to.rosenbrock, x0, 2.0, 4.0, p, gcp=gcp,
+                           device="cpu")
+        assert int(res.niter) == int(scan.niter), gcp
+        np.testing.assert_allclose(res.x.numpy(), scan.x.numpy(),
+                                   rtol=1e-10)
