@@ -7,7 +7,8 @@ Phases (any failure makes the script exit 1 and print no result):
 
 1. build the CUDA two-loop kernels from ``lbfgspp_tpu_torch/csrc`` (nvcc,
    sm_90a), print ptxas's registers and spills for each instantiation and
-   the launch plans of the main shape;
+   the launch plans of the main shape (the native core's builds run
+   beside it);
 2. hold the kernel against its plain PyTorch version in float and double,
    in ``sweeps`` and ``rinv`` mode, at the main path's shape (B=4096, m=16,
    n=100) and at odd shapes (mixed fill levels with empty and wrapped
@@ -162,6 +163,26 @@ Phases (any failure makes the script exit 1 and print no result):
    ``"walk_auto"``: box solves/s, walk rounds per GCP call, every
    instance within 1e-4.
 
+26. the native core (``csrc/native``, built in phase 1 beside two_loop:
+   nvcc for the card, g++ for the host), ptxas's registers and stack for
+   both kernels; the builtin quadratic (B=256, n=100, each search) through
+   ``native_lbfgs_batch`` with counts and statuses equal to the host build
+   and to the port's batched ``lbfgs.minimize`` on the card, x to 1e-12;
+   the anchor (Rosenbrock n=10 from 0: 22 iterations, fx <= 1e-12) on the
+   card; random boxes (B=256, n=10, Rosenbrock) through
+   ``native_lbfgsb_batch`` with the host build's statuses and fx to 1e-6
+   relative (x within 1e-8 of the host's is counted); then the multistart
+   at full width (4096 Rosenbrock starts ``uniform(-2, 2)``, n=100, f64,
+   m=6, max_linesearch=256, max_iterations=400), each search in turns on
+   the kernel (one launch), the host build on every core and the port's
+   batched ``lbfgs.minimize``: solves/s, statuses, frac_within_1e-4 (the
+   kernel's no more than 0.005 below the host's); phase 11's starts through
+   the box kernel (every instance within 1e-4 of (2, 4, ...)); the kernels'
+   time beside their bound (f64 flops from the solves' counts over the
+   FP64 peak); and the 2-D batch x feature case
+   (``sharded_cases.mesh_2d``) on four gloo ranks sharing the card, equal
+   to the single-process batched solve (x to 1e-12, niter equal).
+
 Phase 5 also times the kernel at the pair shapes beside their bound;
 phase 2 also checks the solver families' shapes.  The last lines are the
 card's name and power limit (nvidia-smi), a JSON ``kernels`` line, and
@@ -171,6 +192,8 @@ card's name and power limit (nvidia-smi), a JSON ``kernels`` line, and
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import ctypes
 import json
 import math
 import os
@@ -213,6 +236,13 @@ LARGEST_N = 1 << 27
 LOGREG_ROWS, LOGREG_CHUNKS = 8, 4     # scripts/bench_largest_n_logreg.py
 SPLIT_N = 1 << 20                     # phase 24's two ranks on one card
 SPLIT_TIMEOUT = 600
+# The native core on the card (phase 26): the multistart settings of the
+# verify recipe (m=6, max_linesearch=256, max_iterations=400), its checks'
+# batch, and the 2-D batch x feature case on four gloo ranks.
+NATIVE_BATCH, NATIVE_N, NATIVE_M = 4096, 100, 6
+NATIVE_TRIALS, NATIVE_ITERS, NATIVE_CHECK = 256, 400, 256
+NATIVE_LATENCY_REPS = 2000
+MESH2D_B, MESH2D_N, MESH2D_TIMEOUT = 8, 32, 300
 # The JAX audit's static all-reduce counts (tests/test_collective_audit.py)
 # for the solver's own sites; an objective's own all-reduces come on top.
 AUDIT_BUDGET = {"logreg": 6, "box_auto": 60, "owlqn": 5, "implicit": 12}
@@ -378,6 +408,66 @@ def time_vs_bound(torch, fused, args, mode, flush) -> dict:
                 mbytes=nbytes / 1e6, ops_ms=t_ops)
 
 
+def native_flops(niter, nfev, n, m, obj_flops, box=False) -> float:
+    """f64 flops of the native solves, counted from each instance's
+    iterations k and evaluations e, iteration i (0-based) with c = min(i, m)
+    corrections: per evaluation a trial point, the objective (``obj_flops``
+    per coordinate) and ``g.d``, (4 + obj) n; per L-BFGS iteration the
+    two-loop 8cn + 2n and the update's and norms' dots 10n; per L-BFGS-B
+    iteration the Cauchy point's W'd and the update's S'S and L rows, 8cn,
+    the vector work around them, 20n, and the middle matrix's inverse of
+    order d = 2c, one LU (2/3) d^3 and d solves of 2 d^2.  The subspace
+    step's products over the free set are left out (the outputs do not
+    record its size), so the box count is a lower bound."""
+    k = niter.double().cpu()
+    per_eval = (4 + obj_flops) * n * nfev.double().cpu()
+    # iterations with c corrections: one each for c < m while i < k, the
+    # rest (k - m of them) at c = m
+    c = k.new_tensor(range(m + 1))
+    iters = (k[:, None] - c).clamp(min=0)
+    iters[:, :m] = iters[:, :m].clamp(max=1)
+    if not box:
+        per_iter = (8 * c + 12) * n
+    else:
+        d = 2 * c
+        per_iter = (8 * c + 20) * n + (2 / 3) * d ** 3 + 2 * d ** 3
+    return float((per_eval.sum() + (iters * per_iter).sum()))
+
+
+def bitwise(xa, oa, xb, ob) -> bool:
+    """Whether two native runs (x and the outputs fx, gnorm, niter, nfev,
+    status) are equal bit for bit, on any devices."""
+    import torch
+
+    def bits(t):
+        t = t.cpu().contiguous()
+        return t.double().view(torch.int64) if t.is_floating_point() else t
+    return all(bits(a).equal(bits(b)) for a, b in zip((xa, *oa), (xb, *ob)))
+
+
+def native_bound(niter, nfev, n, m, obj_flops, nbytes, box=False):
+    """``(bound_ms, bound_by)`` of a native launch: its f64 flops over the
+    card's FP64 (non-tensor) peak, or the bytes it must move (x0 and any
+    bounds read, x and the five outputs written) over the memory rate."""
+    t_ops = native_flops(niter, nfev, n, m, obj_flops, box) / \
+        PEAK_FLOPS["float64"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def event_ms(torch, fn):
+    """``(ms, fn())``: CUDA-event time of one call, the card idle before."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
 def lasso_loss(x, d):
     """One lasso instance's smooth part, ``0.5 ||A x - b||^2``."""
     return 0.5 * ((d["A"] @ x - d["b"]) ** 2).sum()
@@ -416,10 +506,21 @@ class Smoke:
         try:
             fn()
         except Exception:       # report every phase, then fail the run
+            # on both streams: a run's standard error holds little else,
+            # so its end names the failed phase and the gate's message
             traceback.print_exc(file=sys.stdout)
+            print(f"chip_smoke: phase {name!r} FAILED:", file=sys.stderr)
+            traceback.print_exc(file=sys.stderr)
             self.failures.append(name)
             _log(f"   FAILED: {name}")
         _log(f"   ({time.perf_counter() - t0:.1f} s)")
+
+    def fail(self) -> int:
+        """Name the failed phases on both streams; the exit code."""
+        _log("FAILED: " + ", ".join(self.failures))
+        print("chip_smoke: FAILED: " + ", ".join(self.failures),
+              file=sys.stderr)
+        return 1
 
 
 def main() -> int:
@@ -436,6 +537,7 @@ def main() -> int:
     try:
         import lbfgspp_tpu_torch as lt
         from lbfgspp_tpu_torch import batch as lbatch
+        from lbfgspp_tpu_torch import native
         from lbfgspp_tpu_torch.ops import fused, history
         from lbfgspp_tpu_torch.tools.capture import capture_calls
         from lbfgspp_tpu_torch.utils import cuda_build, objectives
@@ -455,9 +557,20 @@ def main() -> int:
 
     # 1 ---------------------------------------------------------------
     def build():
+        # the native core's builds (nvcc for the card, g++ for the host;
+        # each also without multiply-add contraction) run beside
+        # two_loop's, one compiler process each
         t0 = time.perf_counter()
-        fused.build()
-        _log(f"   built two_loop in {time.perf_counter() - t0:.1f} s")
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            builds = [pool.submit(native.build, device, contract)
+                      for device in ("cuda", "cpu")
+                      for contract in (True, False)]
+            fused.build()
+            _log(f"   built two_loop in {time.perf_counter() - t0:.1f} s")
+            for job in builds:
+                job.result()
+        _log(f"   built the native core for the card and the host in "
+             f"{time.perf_counter() - t0:.1f} s (all builds)")
         for line in ptxas_report(cuda_build.build_logs.get("two_loop", "")):
             _log("   ptxas:", line)
         for dtype in (torch.float32, torch.float64):
@@ -468,8 +581,7 @@ def main() -> int:
 
     smoke.phase("build the CUDA kernel", build)
     if smoke.failures:
-        _log("FAILED: " + ", ".join(smoke.failures))
-        return 1
+        return smoke.fail()
 
     # 2 ---------------------------------------------------------------
     # Tolerance, relative to the largest output entry: 1e-11 in f64 and
@@ -2484,12 +2596,284 @@ def main() -> int:
             "bench" in box_state:
         smoke.phase("mesh= batches on an NCCL group of one; the walk "
                     "GCPs on the box recipe", mesh_paths)
+    # 26 --------------------------------------------------------------
+    native_state = {}
+
+    def native_core():
+        """The native core (csrc/native) on the card against its host build
+        and the port's batched solvers, then the multistart and the box
+        recipe at full width, the builds without multiply-add contraction
+        bit for bit between card and host, one host solve through each
+        binding, then the 2-D batch x feature composition on four gloo
+        ranks sharing the card."""
+        from lbfgspp_tpu_torch import lbfgs as tlbfgs
+        for line in ptxas_report(cuda_build.build_logs.get("native_batch",
+                                                           "")):
+            _log("   ptxas:", line)
+        f64 = torch.float64
+        rng = np.random.default_rng(26)
+        problems = []
+        # (a) exactness on the builtin quadratic: card = host = plain
+        x0 = rng.uniform(-2, 2, (NATIVE_CHECK, NATIVE_N))
+        p = lt.LBFGSParams(epsilon=1e-6, max_iterations=NATIVE_ITERS,
+                           max_linesearch=NATIVE_TRIALS, m=NATIVE_M)
+        err = 0.0
+        for ls in native.LS_KINDS:
+            card = native.minimize_batch("quadratic", x0, p, ls, device=dev)
+            host = native.minimize_batch("quadratic", x0, p, ls,
+                                         device="cpu")
+            plain = lt.minimize(fun_and_grad=objectives.quadratic_fg,
+                                x0=torch.as_tensor(x0, device=dev), params=p,
+                                line_search=ls, device=dev)
+            same = all(torch.equal(getattr(card, f).cpu(),
+                                   getattr(other, f).cpu())
+                       for other in (host, plain)
+                       for f in ("niter", "nfev", "status"))
+            dx = (card.x.cpu() - host.x).abs().max().item()
+            dp = (card.x - plain.x).abs().max().item()
+            err = max(err, dx)
+            _log(f"   quadratic B={NATIVE_CHECK} n={NATIVE_N} {ls}: counts "
+                 f"and statuses equal to the host build and the plain "
+                 f"batched solve: {same}; max|x - host| {dx:.3e}, max|x - "
+                 f"plain| {dp:.3e}; iterations "
+                 f"{dict(collections.Counter(card.niter.tolist()))}")
+            if not same or dx > 1e-12 or dp > 1e-12:
+                problems.append(f"quadratic {ls}")
+        native_state["max_abs_err"] = err
+        # (b) the anchor on the card
+        res = native.minimize("rosenbrock", torch.zeros(10),
+                              lt.LBFGSParams(epsilon=1e-6, max_iterations=100),
+                              device=dev)
+        _log(f"   rosenbrock n=10 from 0 on the card: {res.niter.item()} "
+             f"iterations, fx {res.fx.item():.3e}, status "
+             f"{res.status.item()} (anchor: 22, fx <= 1e-12)")
+        if res.niter.item() != 22 or res.fx.item() > 1e-12 or \
+                res.x.device.type != dev.type:
+            problems.append("anchor")
+        # (c) random boxes through the box kernel's launcher against the
+        # host build.  nvcc and g++ each contract multiply-adds into FMAs
+        # in their own places, so the default builds part in the last
+        # bits; these solves stop at ~1e-5 projected gradient or a 1e-10
+        # relative change of fx, and the parted rounding moves x along
+        # Rosenbrock's flat valleys at an unchanged fx: the statuses equal
+        # and fx to 1e-6 relative, x counted.  The builds without
+        # contraction (nvcc -fmad=false, g++ -ffp-contract=off) must be
+        # equal bit for bit, x to 1e-8 and closer.
+        lb = rng.uniform(-2, 1, (NATIVE_CHECK, 10))
+        ub = lb + rng.uniform(0.1, 3, (NATIVE_CHECK, 10))
+        xb = np.clip(rng.uniform(-2, 2, (NATIVE_CHECK, 10)), lb, ub)
+        bp = lt.LBFGSBParams(max_iterations=200)
+
+        def box_pair(contract):
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                xs = torch.tensor(xb, device=d)
+                out = native.native_lbfgsb_batch(
+                    "rosenbrock", xs, torch.tensor(lb, device=d),
+                    torch.tensor(ub, device=d), bp, contract=contract)
+                outs.append((xs, out))
+            return outs
+
+        (xc, oc), (xh, oh) = box_pair(True)
+        xc = xc.cpu()
+        dx = (xc - xh).abs().max(1).values
+        rel = ((oc.fx.cpu() - oh.fx).abs() / oh.fx.abs().clamp(min=1e-300))
+        st = torch.equal(oc.status.cpu(), oh.status)
+        native_state["box_max_abs_err"] = dx.max().item()
+        _log(f"   random boxes B={NATIVE_CHECK} n=10: statuses equal {st} "
+             f"({dict(collections.Counter(oh.status.tolist()))}); "
+             f"iterations equal on {(oc.niter.cpu() == oh.niter).sum().item()}"
+             f"; x within 1e-8 of the host on {(dx <= 1e-8).sum().item()}, "
+             f"max|dx| {dx.max().item():.3e}; max relative |dfx| "
+             f"{rel.max().item():.3e}")
+        if not st or rel.max().item() > 1e-6 or \
+                not torch.isfinite(xc).all():
+            problems.append("random boxes")
+        (xc, oc), (xh, oh) = box_pair(False)
+        same = bitwise(xc, oc, xh, oh)
+        _log(f"   random boxes without contraction: card = host bit for bit "
+             f"{same} (x, fx, gnorm, niter, nfev, status)")
+        if not same:
+            problems.append("random boxes without contraction")
+        # (d) the multistart at full width, each search, in turns: the
+        # kernel, the host build on every core, the port's batched solve
+        X0 = np.random.default_rng(0).uniform(-2, 2, (NATIVE_BATCH, NATIVE_N))
+        mp = lt.LBFGSParams(m=NATIVE_M, max_linesearch=NATIVE_TRIALS,
+                            max_iterations=NATIVE_ITERS)
+        native.reset_counts()
+        runs = {}
+        for ls in native.LS_KINDS:
+            xs = torch.as_tensor(X0, device=dev).clone()
+            ms, out = event_ms(torch, lambda: native.native_lbfgs_batch(
+                "rosenbrock", xs, mp, ls))
+            xh = torch.as_tensor(X0).clone()
+            t0 = time.perf_counter()
+            oh = native.native_lbfgs_batch("rosenbrock", xh, mp, ls)
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = lt.minimize(fun_and_grad=objectives.rosenbrock_fg,
+                                x0=torch.as_tensor(X0, device=dev), params=mp,
+                                line_search=ls, device=dev)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            fr = [frac_within(x, 1e-4) for x in (xs, xh, plain.x)]
+            runs[ls] = dict(ms=ms, plain_ms=plain_s * 1e3, out=out,
+                            host_niter=oh.niter)
+            _log(f"   multistart {ls}: kernel {ms:.2f} ms = "
+                 f"{NATIVE_BATCH / ms * 1e3:.1f} solves/s; host build on "
+                 f"{os.cpu_count()} cores {host_s:.3f} s = "
+                 f"{NATIVE_BATCH / host_s:.1f} solves/s; the port's batched "
+                 f"lbfgs.minimize {plain_s:.3f} s = "
+                 f"{NATIVE_BATCH / plain_s:.1f} solves/s; frac_within_1e-4 "
+                 f"kernel / host / batched {fr[0]:.4f} / {fr[1]:.4f} / "
+                 f"{fr[2]:.4f}; statuses kernel "
+                 f"{dict(collections.Counter(out.status.tolist()))}, host "
+                 f"{dict(collections.Counter(oh.status.tolist()))}, batched "
+                 f"{dict(collections.Counter(plain.status.tolist()))}; mean "
+                 f"iterations {out.niter.double().mean().item():.1f}, "
+                 f"evaluations {out.nfev.double().mean().item():.1f}")
+            if not torch.isfinite(xs).all() or fr[0] < fr[1] - 0.005:
+                problems.append(f"multistart {ls}")
+        # (e) the box recipe's shape (phase 11's starts, params) in f64
+        bxs = bx0s.to(f64).clone()
+        blo, bhi = torch.full_like(bxs, 2.0), torch.full_like(bxs, 4.0)
+        bms, bout = event_ms(torch, lambda: native.native_lbfgsb_batch(
+            "rosenbrock", bxs, blo, bhi, bparams))
+        launches = (native.native_lbfgs_batch.launches,
+                    native.native_lbfgsb_batch.launches)
+        berr = (bxs - xstar_box).abs().max(1).values
+        bhost = bx0s.to(f64).cpu().clone()
+        native.native_lbfgsb_batch("rosenbrock", bhost, blo.cpu(),
+                                   bhi.cpu(), bparams)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bplain = lt.minimize_b(fun_and_grad=objectives.rosenbrock_fg,
+                               x0=bx0s.to(f64), lb=2.0, ub=4.0,
+                               params=bparams, gcp="scan", device=dev)
+        torch.cuda.synchronize()
+        bplain_ms = (time.perf_counter() - t0) * 1e3
+        phase11 = BOX_BATCH / box_state["bench"]["seconds"][0] \
+            if "bench" in box_state else float("nan")
+        _log(f"   box recipe B={BOX_BATCH} n={BOX_N} f64 through "
+             f"native_lbfgsb_batch: {bms:.2f} ms = "
+             f"{BOX_BATCH / bms * 1e3:.1f} box solves/s (phase 11's box "
+             f"solve: {phase11:.1f}; lbfgsb.minimize(gcp='scan') on the "
+             f"card {bplain_ms:.1f} ms); frac_within_1e-4 "
+             f"{(berr <= 1e-4).double().mean().item():.4f}, worst "
+             f"{berr.max().item():.3e}; max|x - host| "
+             f"{(bxs.cpu() - bhost).abs().max().item():.3e}; statuses "
+             f"{dict(collections.Counter(bout.status.tolist()))}")
+        if bool((berr > 1e-4).any()):
+            problems.append("box recipe")
+        _log(f"   launches on the main path: native_lbfgs_batch "
+             f"{launches[0]}, native_lbfgsb_batch {launches[1]}")
+        if launches != (len(native.LS_KINDS), 1):
+            problems.append(f"launches {launches}")
+        nw = runs["nocedalwright"]
+        bound, by = native_bound(
+            nw["out"].niter, nw["out"].nfev, NATIVE_N, NATIVE_M, 6,
+            NATIVE_BATCH * (2 * NATIVE_N * 8 + 28))
+        bbound, bby = native_bound(
+            bout.niter, bout.nfev, BOX_N, bparams.m, 6,
+            BOX_BATCH * (4 * BOX_N * 8 + 28), box=True)
+        native_state.update(
+            launches=launches, ms=nw["ms"], plain_ms=nw["plain_ms"],
+            bound_ms=bound, bound_by=by,
+            ms_by_search={k: v["ms"] for k, v in runs.items()},
+            plain_ms_by_search={k: v["plain_ms"] for k, v in runs.items()},
+            box_ms=bms, box_plain_ms=bplain_ms, box_bound_ms=bbound,
+            box_bound_by=bby)
+        _log(f"   nocedalwright kernel {nw['ms']:.2f} ms against its bound "
+             f"{bound:.4f} ms ({by}; {bound / nw['ms']:.3%}); box kernel "
+             f"{bms:.2f} ms against {bbound:.4f} ms ({bby}; "
+             f"{bbound / bms:.3%})")
+        # (f) the builds without contraction at the main shape: the
+        # multistart of each search and the box recipe's starts, card =
+        # host bit for bit per instance (after the counted run: these
+        # launches are comparisons)
+        for ls in native.LS_KINDS:
+            xs = torch.as_tensor(X0, device=dev).clone()
+            xh = torch.as_tensor(X0).clone()
+            out = native.native_lbfgs_batch("rosenbrock", xs, mp, ls,
+                                            contract=False)
+            oh = native.native_lbfgs_batch("rosenbrock", xh, mp, ls,
+                                           contract=False)
+            same = bitwise(xs, out, xh, oh)
+            eq = runs[ls]["out"].niter.cpu() == runs[ls]["host_niter"]
+            _log(f"   multistart {ls} without contraction: card = host bit "
+                 f"for bit on all {NATIVE_BATCH} instances {same}; the "
+                 f"default builds' niter equal on {eq.sum().item()}")
+            if not same:
+                problems.append(f"multistart {ls} without contraction")
+        bxs, bhost = bx0s.to(f64).clone(), bx0s.to(f64).cpu().clone()
+        same = bitwise(
+            bxs, native.native_lbfgsb_batch("rosenbrock", bxs, blo, bhi,
+                                            bparams, contract=False),
+            bhost, native.native_lbfgsb_batch(
+                "rosenbrock", bhost, blo.cpu(), bhi.cpu(), bparams,
+                contract=False))
+        _log(f"   box recipe without contraction: card = host bit for bit "
+             f"{same}")
+        if not same:
+            problems.append("box recipe without contraction")
+        native_state["bit_identical_without_contraction"] = not any(
+            "without contraction" in q for q in problems)
+        # (g) the host's single builtin solve through its two bindings:
+        # the CPython one (fastcall.cpp) and ctypes, alternated
+        one = lt.LBFGSParams(epsilon=1e-6, max_iterations=100)
+        x10, cp1 = torch.zeros(10, dtype=f64), native._cparams(one)
+        fast = native._fast()
+        times = {"fastcall": [], "ctypes": []}
+        for _ in range(NATIVE_LATENCY_REPS):
+            x10.zero_()
+            t0 = time.perf_counter_ns()
+            fast.minimize(0, x10.numpy(), ctypes.addressof(cp1), 2)
+            times["fastcall"].append(time.perf_counter_ns() - t0)
+            x10.zero_()
+            t0 = time.perf_counter_ns()
+            native._ctypes_minimize("rosenbrock", x10, one, "nocedalwright")
+            times["ctypes"].append(time.perf_counter_ns() - t0)
+        med = {k: sorted(v)[len(v) // 2] / 1e3 for k, v in times.items()}
+        _log(f"   one host solve (rosenbrock n=10 from 0, 22 iterations), "
+             f"median of {NATIVE_LATENCY_REPS}: fastcall {med['fastcall']:.2f}"
+             f" us, ctypes {med['ctypes']:.2f} us")
+        # (h) the 2-D batch x feature composition, four gloo ranks
+        d2 = np.random.default_rng(0).uniform(-2.0, 2.0, (MESH2D_B, MESH2D_N))
+        x2 = np.zeros((MESH2D_B, MESH2D_N))
+        p2 = dict(epsilon=1e-10, max_iterations=60)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks.run(
+            "lbfgspp_tpu_torch.tools.sharded_cases:mesh_2d", 4,
+            args=(d2, x2, p2, 2, dev.type), backend="gloo",
+            timeout=MESH2D_TIMEOUT)
+        d2t = torch.as_tensor(d2, device=dev)
+        one = tlbfgs._build_solver(
+            lambda x: sharded_cases.weighted(x, d2t), lt.LBFGSParams(**p2),
+            device=dev)
+        ref = one.finalize(one.run(one.init(torch.as_tensor(x2,
+                                                             device=dev))))
+        worst, same = 0.0, True
+        for r in ranks:
+            (lo, hi), (c0, c1) = r["rows"], r["cols"]
+            want = ref.x[lo:hi, c0:c1].cpu().numpy()
+            worst = max(worst, float(np.abs(r["x"] - want).max()))
+            same &= np.array_equal(r["niter"], ref.niter[lo:hi].cpu())
+        _log(f"   2 batch blocks x 2 feature shards on four gloo ranks "
+             f"({time.perf_counter() - t0:.1f} s, the ranks' start "
+             f"included): niter equal {same}, max|x - single| {worst:.3e}")
+        if not same or worst > 1e-12:
+            problems.append("2-D composition")
+        if problems:
+            raise AssertionError(f"native core: {problems}")
+
+    smoke.phase("the native core on the card; the 2-D batch x feature "
+                "composition", native_core)
     if dist.is_initialized():
         dist.destroy_process_group()
 
     if smoke.failures:
-        _log("FAILED: " + ", ".join(smoke.failures))
-        return 1
+        return smoke.fail()
 
     rows = smoke.kernel_rows
     kernel = {
@@ -2555,8 +2939,44 @@ def main() -> int:
             "types": what,
             "sweeps_ms": rows[f"{kind}_sweeps_ms"],
         })
+    # The native core's two kernels (phase 26): not TPU kernels; they
+    # replace the JAX package's host C++ solves.
+    ns = native_state
+    natives = [{
+        "name": "native_lbfgs_batch",
+        "route": "cuda",
+        "source": "lbfgspp_tpu_torch/csrc/native/batch.cu",
+        "replaces": "lbfgspp_tpu/native/core.cpp:575",
+        "kind": "host C++ solve of the JAX package, not a TPU kernel",
+        "launches": ns["launches"][0],
+        "max_abs_err": ns["max_abs_err"],
+        "ms": ns["ms"],
+        "plain_ms": ns["plain_ms"],
+        "bound_ms": ns["bound_ms"],
+        "bound_by": ns["bound_by"],
+        "library_ms": None,     # no PyTorch call computes a solve
+        "bit_identical_without_contraction":
+            ns["bit_identical_without_contraction"],
+        "ms_by_search": ns["ms_by_search"],
+        "plain_ms_by_search": ns["plain_ms_by_search"],
+    }, {
+        "name": "native_lbfgsb_batch",
+        "route": "cuda",
+        "source": "lbfgspp_tpu_torch/csrc/native/batch.cu",
+        "replaces": "lbfgspp_tpu/native/lbfgsb.cpp:606",
+        "kind": "host C++ solve of the JAX package, not a TPU kernel",
+        "launches": ns["launches"][1],
+        "max_abs_err": ns["box_max_abs_err"],
+        "ms": ns["box_ms"],
+        "plain_ms": ns["box_plain_ms"],
+        "bound_ms": ns["box_bound_ms"],
+        "bound_by": ns["box_bound_by"],
+        "library_ms": None,
+        "bit_identical_without_contraction":
+            ns["bit_identical_without_contraction"],
+    }]
     print(card_line())
-    print(json.dumps({"kernels": [kernel] + modes}))
+    print(json.dumps({"kernels": [kernel] + modes + natives}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -211,6 +211,46 @@ def batch_mesh(cases, device: str = "cpu") -> dict:
     return out
 
 
+def weighted(x, d):
+    """``sum (x - d)^2 (1 + 0.1 d^2)`` and its gradient, batched over the
+    rows of ``x`` and ``d`` (tests/test_sharded.py:179-182)."""
+    r = x - d
+    w = 1.0 + 0.1 * d * d
+    return torch.sum(r * r * w, -1), 2.0 * r * w
+
+
+def mesh_2d(d, x0, params: dict, feat: int = 2, device: str = "cpu") -> dict:
+    """The 2-D batch x feature composition (tests/test_sharded.py:152-212)
+    on the default group: ``world / feat`` batch blocks, each a group of
+    ``feat`` ranks that split its instances' features.  Every rank builds
+    the same subgroups (all ranks call ``new_group`` for every group, in
+    one order): the feature group of rank r holds ranks ``feat * (r //
+    feat)`` onwards, its batch group the ranks with its feature index.  It
+    solves its ``[B / blocks, n / feat]`` block with the batched L-BFGS
+    under ``group=`` its feature group, the objective's partial values
+    summed by ``collectives.psum_scalar``; returns its block of x, the
+    replicated fields and the rows and columns it held."""
+    dev = torch.device(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    feat_groups = [dist.new_group(list(range(k, k + feat)))
+                   for k in range(0, world, feat)]
+    batch_groups = [dist.new_group(list(range(j, world, feat)))
+                    for j in range(feat)]
+    fgroup, bgroup = feat_groups[rank // feat], batch_groups[rank % feat]
+    lo, hi = coll.block(np.shape(d)[0], bgroup)
+    d_block = lt.shard(_t(d, dev)[lo:hi], fgroup).contiguous()
+
+    def fg(x):
+        fx, grad = weighted(x, d_block)
+        return coll.psum_scalar(fx, fgroup, "objective"), grad
+
+    res = lt.minimize_sharded(local_fun_and_grad=fg, x0=_t(x0, dev)[lo:hi],
+                              params=lt.LBFGSParams(**params), mesh=fgroup,
+                              device=dev)
+    cols = coll.block(np.shape(d)[1], fgroup)
+    return {**_solve_fields(res), "rows": (lo, hi), "cols": cols}
+
+
 def audit(device: str = "cpu") -> dict:
     """The cases of tests/test_collective_audit.py on this group, n = 16
     per rank: each solve's all-reduce calls by site, beside its niter and

@@ -58,6 +58,9 @@ def run(target: str, world: int = 2, args=(), kwargs=None,
         env["PYTHONPATH"] = os.pathsep.join(
             [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
+        # every rank is on this host: gloo's pairs connect over loopback,
+        # not over whatever address the host name resolves to
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
         procs = []
         for rank in range(world):
             log = open(os.path.join(tmp, f"log{rank}.txt"), "wb")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import lbfgspp_tpu_torch as T
+from lbfgspp_tpu_torch import native
 from lbfgspp_tpu_torch.ops import history
 from lbfgspp_tpu_torch.utils import objectives
 
@@ -44,6 +45,27 @@ def test_no_jax_and_no_jax_package_imports(path):
         assert top not in ("jax", "jaxlib", "lbfgspp_tpu"), (path, mod)
 
 
+def _csrc_sources():
+    csrc = os.path.join(PORT, "csrc")
+    for dirpath, _, files in os.walk(csrc):
+        for f in files:
+            yield os.path.join(dirpath, f)
+
+
+@pytest.mark.parametrize("path", sorted(_csrc_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_native_sources_include_only_the_ports_own(path):
+    """A quoted include of the port's C++/CUDA sources names a file beside
+    it: nothing of lbfgspp_tpu/native/ (its core.cpp, lbfgsb.cpp) is
+    compiled into the port."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith('#include "'):
+                name = line.split('"')[1]
+                assert os.path.exists(os.path.join(os.path.dirname(path),
+                                                   name)), (path, name)
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, lbfgspp_tpu_torch, lbfgspp_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -75,6 +97,12 @@ def _entry_points():
             **kw),
         "minimize_pytree": lambda **kw: T.minimize_pytree(
             lambda t: torch.sum(t["a"] ** 2), {"a": torch.ones(3)}, p, **kw),
+        "native.minimize": lambda **kw: native.minimize(
+            "rosenbrock", torch.zeros(4), p, **kw),
+        "native.minimize_b": lambda **kw: native.minimize_b(
+            "rosenbrock", torch.zeros(4), -1.0, 1.0, **kw),
+        "native.minimize_batch": lambda **kw: native.minimize_batch(
+            "quadratic", x0, p, **kw),
     }
 
 

@@ -590,3 +590,117 @@ def test_captured_calls_launch_but_count_nothing(cuda):
         history_dtype=BF16, device=cuda))
     assert len(calls) == 5 and calls[0][0].dtype == BF16
     assert fused.two_loop.launches == 0 and fused.two_loop.plain_routes == 0
+
+
+# ---------------------------------------------------------------------------
+# The native core on the card (csrc/native/batch.cu), held against its host
+# build (csrc/native/host.cpp) on the same inputs.  nvcc and g++ (with the
+# JAX module's -march=native) each contract multiply-adds into FMAs in their
+# own places, so the default builds are held to tolerances: the builtin
+# quadratic's counts equal and x to 1e-12; on Rosenbrock in random boxes,
+# whose solves stop at ~1e-5 projected gradient or a 1e-10 relative change
+# of fx, the statuses equal and fx to 1e-6 relative (the parted rounding
+# moves x along the flat valleys at an unchanged fx: 3.5e-3 at this seed
+# on the H100).  The builds without contraction (contract=False: nvcc
+# -fmad=false, g++ -ffp-contract=off) are held bit for bit.
+# ---------------------------------------------------------------------------
+
+from lbfgspp_tpu_torch import native  # noqa: E402
+
+
+@pytest.mark.parametrize("ls", list(native.LS_KINDS))
+def test_native_kernel_matches_host_on_quadratics(cuda, ls):
+    x0 = np.random.default_rng(4).uniform(-2, 2, (64, 100))
+    p = lt.LBFGSParams(epsilon=1e-6, max_iterations=400, max_linesearch=256,
+                       m=6)
+    native.reset_counts()
+    card = native.minimize_batch("quadratic", x0, p, ls, device=cuda)
+    torch.cuda.synchronize()
+    host = native.minimize_batch("quadratic", x0, p, ls, device="cpu")
+    assert native.native_lbfgs_batch.launches == 1
+    for f in ("niter", "nfev", "status"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
+    assert (card.x.cpu() - host.x).abs().max().item() <= 1e-12
+
+
+def test_native_rosenbrock_anchor_on_the_card(cuda):
+    res = native.minimize("rosenbrock", torch.zeros(10),
+                          lt.LBFGSParams(epsilon=1e-6, max_iterations=100))
+    assert res.x.device.type == "cuda"
+    assert res.niter.item() == 22 and res.status.item() == 1
+    assert res.fx.item() <= 1e-12
+
+
+def _same_bits(xa, oa, xb, ob):
+    """x and every output of two native runs, equal bit for bit."""
+    for a, b in zip((xa, *oa), (xb, *ob)):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        assert torch.equal(a, b)
+
+
+def test_native_box_kernel_matches_host(cuda):
+    rng = np.random.default_rng(0)
+    lb = rng.uniform(-2, 1, (64, 10))
+    ub = lb + rng.uniform(0.1, 3, (64, 10))
+    x0 = np.clip(rng.uniform(-2, 2, (64, 10)), lb, ub)
+    p = lt.LBFGSBParams(max_iterations=200)
+    for contract in (True, False):
+        native.reset_counts()
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            xs = torch.tensor(x0, device=dev)
+            out = native.native_lbfgsb_batch(
+                "rosenbrock", xs, torch.tensor(lb, device=dev),
+                torch.tensor(ub, device=dev), p, contract=contract)
+            outs.append((xs, out))
+        assert native.native_lbfgsb_batch.launches == 1
+        (xc, oc), (xh, oh) = outs
+        if not contract:
+            _same_bits(xc, oc, xh, oh)
+            continue
+        assert torch.equal(oc.status.cpu(), oh.status)
+        assert ((oc.fx.cpu() - oh.fx).abs() <= 1e-6 * oh.fx.abs()).all()
+        assert torch.isfinite(xc).all()
+
+
+@pytest.mark.parametrize("ls", list(native.LS_KINDS))
+def test_native_multistart_bit_identical_without_contraction(cuda, ls):
+    """The multistart recipe at full width (B=4096, n=100, m=6): the card's
+    and the host's builds without contraction agree in every instance's
+    niter, nfev and status and in x, bit for bit."""
+    x0 = np.random.default_rng(0).uniform(-2, 2, (4096, 100))
+    p = lt.LBFGSParams(m=6, max_linesearch=256, max_iterations=400)
+    xc, xh = torch.tensor(x0, device=cuda), torch.tensor(x0)
+    oc = native.native_lbfgs_batch("rosenbrock", xc, p, ls, contract=False)
+    oh = native.native_lbfgs_batch("rosenbrock", xh, p, ls, contract=False)
+    _same_bits(xc, oc, xh, oh)
+
+
+def test_native_box_recipe_on_the_card(cuda):
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(2, 4, (256, 10)),
+                         device=cuda)
+    res = native.native_lbfgsb_batch("rosenbrock", x0, torch.full_like(x0, 2),
+                                     torch.full_like(x0, 4),
+                                     lt.LBFGSBParams())
+    xstar = torch.tensor([2.0, 4.0] * 5, dtype=torch.float64, device=cuda)
+    assert (res.status == 1).all()
+    assert (x0 - xstar).abs().max().item() <= 1e-4
+
+
+def test_native_multistart_quality_on_the_card(cuda):
+    """The multistart recipe (n=100, m=6, max_linesearch=256,
+    max_iterations=400) at full width, B=4096: every x finite, and the
+    card's share within 1e-4 of the optimum no more than 0.005 below the
+    host build's."""
+    x0 = np.random.default_rng(0).uniform(-2, 2, (4096, 100))
+    p = lt.LBFGSParams(m=6, max_linesearch=256, max_iterations=400)
+    card = native.minimize_batch("rosenbrock", x0, p, device=cuda).x.cpu()
+    host = native.minimize_batch("rosenbrock", x0, p, device="cpu").x
+    assert torch.isfinite(card).all()
+
+    def frac(x):
+        return ((x - 1).abs().max(1).values <= 1e-4).double().mean().item()
+
+    assert frac(card) >= frac(host) - 0.005
