@@ -2,26 +2,66 @@
 //
 // The port's own copy of the JAX package's host core (lbfgspp_tpu/native/
 // core.cpp: the reference semantics of LBFGS.h, its four line searches and
-// the two builtin objectives), written so that it compiles twice:
+// the two builtin objectives), written once and run under one of three
+// execution policies (below):
 //
-// * with g++ into the host library (host.cpp), under the JAX module's flags,
-//   where every arithmetic expression is the one core.cpp writes, so that
-//   the host build is bit-identical to lbfgspp_tpu.native;
-// * with nvcc into batch.cu, one GPU thread per instance, where it replaces
-//   the JAX package's threaded batch (fastcall.cpp, fast_minimize_batch).
+// * Serial, with g++ into the host library (host.cpp, fastcall.cpp), under
+//   the JAX module's flags, where every arithmetic expression is the one
+//   core.cpp writes, so that the host build is bit-identical to
+//   lbfgspp_tpu.native;
+// * Warp, with nvcc into batch.cu, one warp per instance, where it replaces
+//   the JAX package's threaded batch (fastcall.cpp, fast_minimize_batch);
+// * Lanes, with g++ into the host library beside Serial: the Warp policy's
+//   arithmetic without threads, the witness that the card's build without
+//   multiply-add contraction is bit for bit a host build's.
 //
 // What changes against core.cpp, and why:
-// * every function is LBFGSPP_HD (__host__ __device__ under nvcc);
+// * every function is LBFGSPP_HD (__host__ __device__ under nvcc) and
+//   templated on the policy X;
 // * every std::vector becomes a slice of one caller-provided workspace
-//   (native_workspace(n, m, past) bytes; the device holds one row of a
-//   [B, W] buffer per instance), so nothing is allocated inside a solve and
-//   nothing large lives on a GPU thread's stack;
+//   (native_workspace(n, m, past) bytes; on the card a warp's slice of the
+//   block's shared memory, or one row of a [B, W] buffer in device memory
+//   when the block's warps do not fit), so nothing is allocated inside a
+//   solve and nothing large lives in a thread's registers;
 // * the objective is a functor type the solve and the searches are
 //   templated on (a device function pointer defeats inlining): the builtins
 //   are the functors Rosenbrock and Quadratic, and the host wraps a C
 //   callback in another;
 // * std::abs/sqrt/isnan/isinf/isfinite/min/max/memcpy are spelled with
 //   helpers that mean the same on both compilers.
+//
+// The policies.  A policy X spreads a solve's vector work and sums its
+// reductions:
+//   X::each(n, fn)            fn(i) for every i in [0, n), each i on one
+//                             lane; afterwards every lane may read what any
+//                             lane wrote;
+//   X::reduce(n, init, t, op) op-fold of t(i) over [0, n) from init, the
+//                             same bits on every lane (sum<X>: op = +);
+//                             t may not write memory that another lane
+//                             reads before the next X::sync();
+//   X::any(n, pred)           whether pred(i) holds for some i;
+//   X::compact(n, pred, put)  put(k, i) for the k-th i in index order with
+//                             pred(i); returns their count;
+//   X::put(p, v)              a store of scalar code: lane 0 writes;
+//   X::sync()                 every lane then sees every store before it;
+//   X::leader()               whether this lane runs a section that only
+//                             one lane may run (an in-place sort or LU).
+// Serial is a loop: each and reduce in index order (the reference's sums),
+// put a store.  Warp gives lane l the indices i = l (mod 32): a reduction
+// folds the lane's terms in index order, then a xor butterfly over offsets
+// 16, 8, 4, 2, 1 that folds the lower lane's value with the higher's, so
+// every lane computes the same tree and holds the same bits, and all
+// control flow that depends on a reduction is warp-uniform without a
+// broadcast.  Lanes folds the same 32 strided partials and the same tree in
+// one thread.  Scalar logic (the searches' interpolation and bracketing,
+// the Arena's bump pointer, the index bookkeeping) runs redundantly on
+// every lane on identical values; memory that only scalar code writes (the
+// history's ys, alpha and order, the past ring, the box core's middle
+// matrix, break points, index sets and BOXCQP scalars) is written by lane 0
+// alone (X::put, or an X::leader() section), followed by X::sync() before
+// another lane reads it.  Short vectors (the 2m-long middle-matrix
+// vectors) are summed serially, by every lane alike or by the lane that
+// owns the output, in the reference's order.
 #pragma once
 
 #include <cmath>
@@ -29,8 +69,10 @@
 
 #if defined(__CUDACC__)
 #define LBFGSPP_HD __host__ __device__
+#define LBFGSPP_INLINE __forceinline__
 #else
 #define LBFGSPP_HD
+#define LBFGSPP_INLINE inline
 #endif
 
 namespace lbfgspp_native {
@@ -83,9 +125,78 @@ template <class T>
 LBFGSPP_HD inline T dmin(T a, T b) { return (b < a) ? b : a; }
 template <class T>
 LBFGSPP_HD inline T dmax(T a, T b) { return (a < b) ? b : a; }
-template <class T>
-LBFGSPP_HD inline void copy_n(T* dst, const T* src, int n) {
-  for (int i = 0; i < n; ++i) dst[i] = src[i];
+
+// The host policies (the card's, Warp, is in batch.cu).
+struct Serial {
+  template <class Fn>
+  LBFGSPP_HD static LBFGSPP_INLINE void each(int n, const Fn& fn) {
+    for (int i = 0; i < n; ++i) fn(i);
+  }
+  template <class Fn, class Op>
+  LBFGSPP_HD static LBFGSPP_INLINE double reduce(int n, double init,
+                                                 const Fn& term, Op op) {
+    double r = init;
+    for (int i = 0; i < n; ++i) r = op(r, term(i));
+    return r;
+  }
+  template <class P>
+  LBFGSPP_HD static LBFGSPP_INLINE bool any(int n, const P& pred) {
+    for (int i = 0; i < n; ++i)
+      if (pred(i)) return true;
+    return false;
+  }
+  template <class P, class W>
+  LBFGSPP_HD static LBFGSPP_INLINE int compact(int n, const P& pred,
+                                               const W& put) {
+    int k = 0;
+    for (int i = 0; i < n; ++i)
+      if (pred(i)) put(k++, i);
+    return k;
+  }
+  template <class T>
+  LBFGSPP_HD static LBFGSPP_INLINE void put(T* p, T v) { *p = v; }
+  LBFGSPP_HD static LBFGSPP_INLINE void sync() {}
+  LBFGSPP_HD static LBFGSPP_INLINE bool leader() { return true; }
+};
+
+struct Add {
+  LBFGSPP_HD LBFGSPP_INLINE double operator()(double a, double b) const {
+    return a + b;
+  }
+};
+struct Min {
+  LBFGSPP_HD LBFGSPP_INLINE double operator()(double a, double b) const {
+    return dmin(a, b);
+  }
+};
+struct Max {
+  LBFGSPP_HD LBFGSPP_INLINE double operator()(double a, double b) const {
+    return dmax(a, b);
+  }
+};
+
+// The warp's width, and its arithmetic on one host thread: each, any,
+// compact, put and sync as Serial; a reduction folds the terms of each
+// residue i mod 32 in index order, then the butterfly's tree.
+constexpr int kWarp = 32;
+
+struct Lanes : Serial {
+  template <class Fn, class Op>
+  LBFGSPP_HD static LBFGSPP_INLINE double reduce(int n, double init,
+                                                 const Fn& term, Op op) {
+    double part[kWarp];
+    for (int l = 0; l < kWarp; ++l) part[l] = init;
+    for (int i = 0; i < n; ++i) part[i % kWarp] = op(part[i % kWarp], term(i));
+    for (int off = kWarp / 2; off >= 1; off /= 2)
+      for (int l = 0; l < off; ++l) part[l] = op(part[l], part[l + off]);
+    return part[0];
+  }
+};
+
+// The policy's sum of term(i) over [0, n) (Serial: s += term(i)).
+template <class X, class Fn>
+LBFGSPP_HD LBFGSPP_INLINE double sum(int n, const Fn& term) {
+  return X::reduce(n, 0.0, term, Add{});
 }
 
 // A bump allocator over the caller's workspace: doubles from the front,
@@ -151,23 +262,35 @@ LBFGSPP_HD inline long long native_workspace(int n, int m, int past) {
   return workspace_bytes(native_doubles(n, m, past), m);
 }
 
+template <class X>
 LBFGSPP_HD inline double dot(const double* a, const double* b, int n) {
-  double s = 0.0;
-  for (int i = 0; i < n; ++i) s += a[i] * b[i];
-  return s;
+  return sum<X>(n, [&](int i) { return a[i] * b[i]; });
 }
 
+template <class X>
 LBFGSPP_HD inline double nrm2(const double* a, int n) {
-  return dsqrt(dot(a, a, n));
+  return dsqrt(dot<X>(a, a, n));
 }
 
+template <class X>
 LBFGSPP_HD inline void axpy(double* y, double alpha, const double* x,
                             int n) {
-  for (int i = 0; i < n; ++i) y[i] += alpha * x[i];
+  X::each(n, [&](int i) { y[i] += alpha * x[i]; });
+}
+
+// Two vector copies in one pass.
+template <class X>
+LBFGSPP_HD inline void copy2(double* d1, const double* s1, double* d2,
+                             const double* s2, int n) {
+  X::each(n, [&](int i) {
+    d1[i] = s1[i];
+    d2[i] = s2[i];
+  });
 }
 
 // Ring-buffer correction history with the two-loop recursion
 // (BFGSMat.h:35-302 semantics).
+template <class X>
 struct History {
   int n, m, ncorr, ptr;
   double theta;
@@ -185,30 +308,32 @@ struct History {
 
   LBFGSPP_HD void add(const double* sv, const double* yv) {
     int loc = ptr % m;
-    copy_n(srow(loc), sv, n);
-    copy_n(yrow(loc), yv, n);
-    double d = dot(sv, yv, n);
-    ys[loc] = d;
-    theta = dot(yv, yv, n) / d;
+    copy2<X>(srow(loc), sv, yrow(loc), yv, n);
+    double d = dot<X>(sv, yv, n);
+    X::put(ys + loc, d);
+    theta = dot<X>(yv, yv, n) / d;
     if (ncorr < m) ++ncorr;
     ptr = loc + 1;
   }
 
   // res = a * H * v (two-loop recursion, newest -> oldest -> newest).
+  // (ys, alpha and order are put by lane 0; each is read after the
+  // X::sync() that ends the next vector op.)
   LBFGSPP_HD void apply_hv(const double* v, double a, double* res) {
-    for (int i = 0; i < n; ++i) res[i] = a * v[i];
+    X::each(n, [&](int i) { res[i] = a * v[i]; });
     int j = ptr % m;
     for (int i = 0; i < ncorr; ++i) {
       j = (j + m - 1) % m;
-      alpha[j] = dot(srow(j), res, n) / ys[j];
-      axpy(res, -alpha[j], yrow(j), n);
-      order[i] = j;
+      const double aj = dot<X>(srow(j), res, n) / ys[j];
+      X::put(alpha + j, aj);
+      axpy<X>(res, -aj, yrow(j), n);
+      X::put(order + i, j);
     }
-    for (int i = 0; i < n; ++i) res[i] /= theta;
+    X::each(n, [&](int i) { res[i] /= theta; });
     for (int i = ncorr - 1; i >= 0; --i) {
       int jj = order[i];
-      double beta = dot(yrow(jj), res, n) / ys[jj];
-      axpy(res, alpha[jj] - beta, srow(jj), n);
+      double beta = dot<X>(yrow(jj), res, n) / ys[jj];
+      axpy<X>(res, alpha[jj] - beta, srow(jj), n);
     }
   }
 };
@@ -223,7 +348,7 @@ struct LsResult {
 // Line searches.  All update x/grad in place and return the accepted state.
 // ---------------------------------------------------------------------------
 
-template <class F>
+template <class X, class F>
 LBFGSPP_HD LsResult ls_backtracking(const F& f, Arena& ar, const Params& p,
                                     const double* xp, const double* drt,
                                     double step_max, double step, double fx,
@@ -239,13 +364,13 @@ LBFGSPP_HD LsResult ls_backtracking(const F& f, Arena& ar, const Params& p,
   double width = 0.0;
   int nfev = 0;
   for (int it = 0; it < p.max_linesearch; ++it) {
-    for (int i = 0; i < n; ++i) x[i] = xp[i] + step * drt[i];
-    fx = f(x, grad, n);
+    X::each(n, [&](int i) { x[i] = xp[i] + step * drt[i]; });
+    fx = f(X{}, x, grad, n);
     ++nfev;
     if (is_nan(fx) || fx > fx_init + step * test_decr) {
       width = dec;
     } else {
-      dg = dot(grad, drt, n);
+      dg = dot<X>(grad, drt, n);
       if (p.linesearch == 1) return {step, fx, dg, kRunning, nfev};
       if (dg < p.wolfe * dg_init) {
         width = inc;
@@ -265,7 +390,7 @@ LBFGSPP_HD LsResult ls_backtracking(const F& f, Arena& ar, const Params& p,
   return {step, fx, dg, kLsMaxLinesearch, nfev};
 }
 
-template <class F>
+template <class X, class F>
 LBFGSPP_HD LsResult ls_bracketing(const F& f, Arena& ar, const Params& p,
                                   const double* xp, const double* drt,
                                   double step_max, double step, double fx,
@@ -281,13 +406,13 @@ LBFGSPP_HD LsResult ls_bracketing(const F& f, Arena& ar, const Params& p,
   double step_hi = kInf;
   int nfev = 0;
   for (int it = 0; it < p.max_linesearch; ++it) {
-    for (int i = 0; i < n; ++i) x[i] = xp[i] + step * drt[i];
-    fx = f(x, grad, n);
+    X::each(n, [&](int i) { x[i] = xp[i] + step * drt[i]; });
+    fx = f(X{}, x, grad, n);
     ++nfev;
     if (!is_finite(fx) || fx > fx_init + step * test_decr) {
       step_hi = step;
     } else {
-      dg = dot(grad, drt, n);
+      dg = dot<X>(grad, drt, n);
       if (p.linesearch == 1) return {step, fx, dg, kRunning, nfev};
       if (dg < p.wolfe * dg_init) {
         step_lo = step;
@@ -328,7 +453,7 @@ LBFGSPP_HD inline double nw_quad_interp(double step_lo, double step_hi,
   return bisect ? smid : cand;
 }
 
-template <class F>
+template <class X, class F>
 LBFGSPP_HD LsResult ls_nocedalwright(const F& f, Arena& ar, const Params& p,
                                      const double* xp, const double* drt,
                                      double step_max, double step, double fx,
@@ -347,16 +472,15 @@ LBFGSPP_HD LsResult ls_nocedalwright(const F& f, Arena& ar, const Params& p,
   Mark mark(ar);
   double* x_lo = ar.doubles(n);
   double* grad_lo = ar.doubles(n);
-  copy_n(x_lo, xp, n);
-  copy_n(grad_lo, grad, n);
+  copy2<X>(x_lo, xp, grad_lo, grad, n);
   int nfev = 0;
   int it = 0;
 
   // Bracketing phase.
   for (;;) {
-    for (int i = 0; i < n; ++i) x[i] = xp[i] + step * drt[i];
-    fx = f(x, grad, n);
-    dg = dot(grad, drt, n);
+    X::each(n, [&](int i) { x[i] = xp[i] + step * drt[i]; });
+    fx = f(X{}, x, grad, n);
+    dg = dot<X>(grad, drt, n);
     ++nfev;
     if (fx - fx_init > step * test_decr ||
         (0.0 < step_lo && fx >= fx_lo)) {
@@ -370,8 +494,7 @@ LBFGSPP_HD LsResult ls_nocedalwright(const F& f, Arena& ar, const Params& p,
     step_lo = step;
     fx_lo = fx;
     dg_lo = dg;
-    copy_n(x_lo, x, n);
-    copy_n(grad_lo, grad, n);
+    copy2<X>(x_lo, x, grad_lo, grad, n);
     if (dg >= 0.0) break;
     ++it;
     if (it >= p.max_linesearch) return {step, fx, dg, kRunning, nfev};
@@ -381,9 +504,9 @@ LBFGSPP_HD LsResult ls_nocedalwright(const F& f, Arena& ar, const Params& p,
   // Zoom phase.
   for (;;) {
     step = nw_quad_interp(step_lo, step_hi, fx_lo, fx_hi, dg_lo);
-    for (int i = 0; i < n; ++i) x[i] = xp[i] + step * drt[i];
-    fx = f(x, grad, n);
-    dg = dot(grad, drt, n);
+    X::each(n, [&](int i) { x[i] = xp[i] + step * drt[i]; });
+    fx = f(X{}, x, grad, n);
+    dg = dot<X>(grad, drt, n);
     ++nfev;
     if (fx - fx_init > step * test_decr || fx >= fx_lo) {
       if (step == step_hi) return {step, fx, dg, kLsNumerical, nfev};
@@ -399,15 +522,13 @@ LBFGSPP_HD LsResult ls_nocedalwright(const F& f, Arena& ar, const Params& p,
       step_lo = step;
       fx_lo = fx;
       dg_lo = dg;
-      copy_n(x_lo, x, n);
-      copy_n(grad_lo, grad, n);
+      copy2<X>(x_lo, x, grad_lo, grad, n);
     }
     ++it;
     if (it >= p.max_linesearch) {
       // Exhausted: restore the best-so-far (lo) state.
       if (step_lo <= 0.0) return {step, fx, dg, kLsNumerical, nfev};
-      copy_n(x, x_lo, n);
-      copy_n(grad, grad_lo, n);
+      copy2<X>(x, x_lo, grad, grad_lo, n);
       return {step_lo, fx_lo, dg_lo, kRunning, nfev};
     }
   }
@@ -492,7 +613,7 @@ LBFGSPP_HD inline double mt_step_selection(double al, double au, double at,
                    : dmax(at + deltau * (au - at), ae);
 }
 
-template <class F>
+template <class X, class F>
 LBFGSPP_HD LsResult ls_morethuente(const F& f, Arena& ar, const Params& p,
                                    const double* xp, const double* drt,
                                    double step_max, double step, double fx,
@@ -513,8 +634,7 @@ LBFGSPP_HD LsResult ls_morethuente(const F& f, Arena& ar, const Params& p,
   Mark mark(ar);
   double* x_lo = ar.doubles(n);
   double* grad_lo = ar.doubles(n);
-  copy_n(x_lo, xp, n);
-  copy_n(grad_lo, grad, n);
+  copy2<X>(x_lo, xp, grad_lo, grad, n);
   double fx_lo = fx_init, dg_lo = dg_init;
   bool bracketed = false;
   bool use_sg = p.min_step > 0.0;
@@ -525,10 +645,10 @@ LBFGSPP_HD LsResult ls_morethuente(const F& f, Arena& ar, const Params& p,
   int nfev = 0;
 
   for (int it = 0; it < p.max_linesearch; ++it) {
-    for (int i = 0; i < n; ++i) x[i] = xp[i] + step * drt[i];
-    fx = f(x, grad, n);
+    X::each(n, [&](int i) { x[i] = xp[i] + step * drt[i]; });
+    fx = f(X{}, x, grad, n);
     ++nfev;
-    dg = dot(grad, drt, n);
+    dg = dot<X>(grad, drt, n);
     const double psit = fx - fx_init - step * test_decr;
     const double dpsit = dg - test_decr;
     if (psit <= 0.0 && dabs(dg) <= test_curv)
@@ -573,8 +693,7 @@ LBFGSPP_HD LsResult ls_morethuente(const F& f, Arena& ar, const Params& p,
       fI_lo = ft;
       gI_lo = gt;
       psiI_lo = psit;
-      copy_n(x_lo, x, n);
-      copy_n(grad_lo, grad, n);
+      copy2<X>(x_lo, x, grad_lo, grad, n);
       fx_lo = fx;
       dg_lo = dg;
     }
@@ -599,26 +718,25 @@ LBFGSPP_HD LsResult ls_morethuente(const F& f, Arena& ar, const Params& p,
     step = new_step;
   }
   // Exhausted: restore the best-so-far (lo) state.
-  copy_n(x, x_lo, n);
-  copy_n(grad, grad_lo, n);
+  copy2<X>(x, x_lo, grad, grad_lo, n);
   return {I_lo, fx_lo, dg_lo, kRunning, nfev};
 }
 
-template <class F>
+template <class X, class F>
 LBFGSPP_HD LsResult run_linesearch(int which, const F& f, Arena& ar,
                                    const Params& p, const double* xp,
                                    const double* drt, double step_max,
                                    double step, double fx, double* x,
                                    double* grad, double dg, int n) {
   switch (which) {
-    case 0: return ls_backtracking(f, ar, p, xp, drt, step_max, step, fx, x,
+    case 0: return ls_backtracking<X>(f, ar, p, xp, drt, step_max, step, fx, x,
                                    grad, dg, n);
-    case 1: return ls_bracketing(f, ar, p, xp, drt, step_max, step, fx, x,
+    case 1: return ls_bracketing<X>(f, ar, p, xp, drt, step_max, step, fx, x,
                                  grad, dg, n);
-    case 3: return ls_morethuente(f, ar, p, xp, drt, step_max, step, fx, x,
+    case 3: return ls_morethuente<X>(f, ar, p, xp, drt, step_max, step, fx, x,
                                   grad, dg, n);
     case 2:
-    default: return ls_nocedalwright(f, ar, p, xp, drt, step_max, step, fx,
+    default: return ls_nocedalwright<X>(f, ar, p, xp, drt, step_max, step, fx,
                                      x, grad, dg, n);
   }
 }
@@ -627,28 +745,35 @@ LBFGSPP_HD LsResult run_linesearch(int which, const F& f, Arena& ar,
 // Built-in objectives (callback-free; ids match native/__init__.py).
 // ---------------------------------------------------------------------------
 
+// Rosenbrock sums its n / 2 terms over the pairs (2j, 2j + 1): under Warp,
+// lane l takes the pairs j = l (mod 32), so a pair never straddles lanes.
 struct Rosenbrock {
-  LBFGSPP_HD double operator()(const double* x, double* grad, int n) const {
-    double fx = 0.0;
-    for (int i = 0; i < n; i += 2) {
+  template <class X>
+  LBFGSPP_HD double operator()(X, const double* x, double* grad,
+                               int n) const {
+    const double fx = sum<X>((n + 1) / 2, [&](int j) {
+      const int i = 2 * j;
       const double t1 = 1.0 - x[i];
       const double t2 = 10.0 * (x[i + 1] - x[i] * x[i]);
       grad[i + 1] = 20.0 * t2;
       grad[i] = -2.0 * (x[i] * grad[i + 1] + t1);
-      fx += t1 * t1 + t2 * t2;
-    }
+      return t1 * t1 + t2 * t2;
+    });
+    X::sync();
     return fx;
   }
 };
 
 struct Quadratic {
-  LBFGSPP_HD double operator()(const double* x, double* grad, int n) const {
-    double fx = 0.0;
-    for (int i = 0; i < n; ++i) {
+  template <class X>
+  LBFGSPP_HD double operator()(X, const double* x, double* grad,
+                               int n) const {
+    const double fx = sum<X>(n, [&](int i) {
       const double r = x[i] - i;
       grad[i] = 2.0 * r;
-      fx += r * r;
-    }
+      return r * r;
+    });
+    X::sync();
     return fx;
   }
 };
@@ -657,13 +782,13 @@ struct Quadratic {
 // native_workspace(n, p.m, p.past) bytes.
 //   ls_kind: 0 backtracking, 1 bracketing, 2 nocedalwright, 3 morethuente
 //   x: in/out iterate [n]; out_fx/out_gnorm/out_niter/out_nfev: outputs
-// Returns a Status code.
-template <class F>
+// Returns a Status code (on every lane; lane 0 writes the outputs).
+template <class X, class F>
 LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
                         int ls_kind, void* ws, double* out_fx,
                         double* out_gnorm, int* out_niter, int* out_nfev) {
   Arena ar(ws, native_doubles(n, p.m, p.past), p.m);
-  History hist(n, p.m, ar);
+  History<X> hist(n, p.m, ar);
   double* grad = ar.doubles(n);
   double* xp = ar.doubles(n);
   double* gradp = ar.doubles(n);
@@ -672,37 +797,36 @@ LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
   double* vy = ar.doubles(n);
   const int nring = dmax(p.past, 1);
   double* fx_ring = ar.doubles(nring);
-  for (int i = 0; i < nring; ++i) fx_ring[i] = 0.0;
+  X::each(nring, [&](int i) { fx_ring[i] = 0.0; });
   const double eps_machine = kEps;
 
-  double fx = f(x, grad, n);
+  double fx = f(X{}, x, grad, n);
   int nfev = 1;
-  double gnorm = nrm2(grad, n);
-  if (p.past > 0) fx_ring[0] = fx;
+  double gnorm = nrm2<X>(grad, n);
+  if (p.past > 0) X::put(fx_ring, fx);
 
   int k = 1;
   int status = kRunning;
-  if (gnorm <= p.epsilon || gnorm <= p.epsilon_rel * nrm2(x, n)) {
+  if (gnorm <= p.epsilon || gnorm <= p.epsilon_rel * nrm2<X>(x, n)) {
     status = kConvergedGrad;
   } else {
-    for (int i = 0; i < n; ++i) drt[i] = -grad[i];
-    double step = 1.0 / nrm2(drt, n);
+    X::each(n, [&](int i) { drt[i] = -grad[i]; });
+    double step = 1.0 / nrm2<X>(drt, n);
 
     for (;;) {
-      copy_n(xp, x, n);
-      copy_n(gradp, grad, n);
-      double dg = dot(grad, drt, n);
+      copy2<X>(xp, x, gradp, grad, n);
+      double dg = dot<X>(grad, drt, n);
 
-      LsResult ls = run_linesearch(ls_kind, f, ar, p, xp, drt, p.max_step,
-                                   step, fx, x, grad, dg, n);
+      LsResult ls = run_linesearch<X>(ls_kind, f, ar, p, xp, drt,
+                                      p.max_step, step, fx, x, grad, dg, n);
       nfev += ls.nfev;
       fx = ls.fx;
-      gnorm = nrm2(grad, n);
+      gnorm = nrm2<X>(grad, n);
       if (ls.status != kRunning) {
         status = ls.status;
         break;
       }
-      if (gnorm <= p.epsilon || gnorm <= p.epsilon_rel * nrm2(x, n)) {
+      if (gnorm <= p.epsilon || gnorm <= p.epsilon_rel * nrm2<X>(x, n)) {
         status = kConvergedGrad;
         break;
       }
@@ -714,18 +838,20 @@ LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
           status = kConvergedDelta;
           break;
         }
-        fx_ring[k % p.past] = fx;
+        X::sync();  // every lane has read fxd before lane 0 overwrites it
+        X::put(fx_ring + k % p.past, fx);
       }
       if (p.max_iterations != 0 && k >= p.max_iterations) {
         status = kMaxIterations;
         break;
       }
 
-      for (int i = 0; i < n; ++i) {
+      X::each(n, [&](int i) {
         vs[i] = x[i] - xp[i];
         vy[i] = grad[i] - gradp[i];
-      }
-      if (dot(vs, vy, n) > eps_machine * dot(vy, vy, n)) hist.add(vs, vy);
+      });
+      if (dot<X>(vs, vy, n) > eps_machine * dot<X>(vy, vy, n))
+        hist.add(vs, vy);
 
       hist.apply_hv(grad, -1.0, drt);
       step = 1.0;
@@ -733,10 +859,10 @@ LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
     }
   }
 
-  *out_fx = fx;
-  *out_gnorm = gnorm;
-  *out_niter = k;
-  *out_nfev = nfev;
+  X::put(out_fx, fx);
+  X::put(out_gnorm, gnorm);
+  X::put(out_niter, k);
+  X::put(out_nfev, nfev);
   return ar.exhausted ? kWorkspaceExhausted : status;
 }
 

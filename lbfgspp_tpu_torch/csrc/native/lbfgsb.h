@@ -4,15 +4,20 @@
 // The port's own copy of lbfgspp_tpu/native/lbfgsb.cpp (the B-mode middle
 // matrix, the generalized Cauchy point, BOXCQP subspace minimization and
 // the solve loop; reference semantics LBFGSB.h, BFGSMat.h, Cauchy.h,
-// SubspaceMin.h) under the treatment of core.h: LBFGSPP_HD functions, the
-// objective a functor, and every std::vector a slice of the caller's
-// workspace.  The temporaries come from core.h's bump allocator (Arena),
-// which each function gives back on return (Mark); their peak, derived at
-// native_doubles_b, is bounded by n (index sets and their values) and 2m
-// (the middle-matrix vectors), so native_workspace_b(n, m, past) bytes
-// always suffice.  std::stable_sort
-// of the Cauchy break points becomes a stable merge sort, which orders them
-// as any stable sort does.
+// SubspaceMin.h) under the treatment of core.h: LBFGSPP_HD functions
+// templated on the execution policy X, the objective a functor, and every
+// std::vector a slice of the caller's workspace.  The temporaries come from
+// core.h's bump allocator (Arena), which each function gives back on return
+// (Mark); their peak, derived at native_doubles_b, is bounded by n (index
+// sets and their values) and 2m (the middle-matrix vectors), so
+// native_workspace_b(n, m, past) bytes always suffice.  std::stable_sort of
+// the Cauchy break points becomes a stable merge sort, which orders them as
+// any stable sort does.
+//
+// Under the Warp policy: the break points' sort and each LU factorization
+// of a middle matrix run on lane 0; the index sets are built by
+// X::compact, in index order as the reference's push_backs; a product
+// over the history gives each of its outputs to one lane.
 #pragma once
 
 #include "core.h"
@@ -41,11 +46,11 @@ struct ParamsB {
 // drt, xcp, vs, vy [n]; vecc [d]; the past ring; the ints newact and
 // fv [n].  On top, one call's temporaries at a time, each given back on
 // return (Mark):
-//   BHist::refactor             scaled [d, d], e [d], lu_solve's copy [d, d]
-//                               2d^2 + d
+//   BHist::refactor             scaled [d, d]                       d^2
+//                               ints: the swaps and the end [d + 1]
 //   the line search             x_lo, grad_lo                       2n
 //   cauchy_point                brk, vecd [n], vecp, cache, wact [d],
-//                               apply_mv's pad, out [d]         2n + 5d
+//                               apply_mv's pad [d]              2n + 4d
 //                               ints: ord [n], the sort's merge [n]  2n
 //   subspace_minimize           vecc, vecl, vecu, negc, vecy, yfb, lam,
 //                               mu [nf]; per BOXCQP iteration rhs, tmp
@@ -54,26 +59,27 @@ struct ParamsB {
 //                               set) under solve_ptbp's mid [dd, dd], wpv
 //                               [dd], lu_solve's copy [dd, dd] (dd = 2c
 //                               <= d) or apply_ptbqv's rhs, mv [d] over
-//                               apply_mv's 2d; after them fy [d] and
-//                               res [<= nf] over apply_ptwmv's 3d;
+//                               apply_mv's d; after them fy [d] and
+//                               res [<= nf] over apply_ptwmv's 2d;
 //                               before them compute_ftbab's ad [nact],
-//                               rhs [d] over apply_ptwmv's 3d, beside
+//                               rhs [d] over apply_ptwmv's 2d, beside
 //                               vecc [nf]:  at most 10n + 2d^2 + d
 //                               ints: lset, uset, pset, yl, yu, yp [nf]
-//                                                                   6n
-// The largest is the subspace step's (10n + 2d^2 + d >= 2n + 5d, as
-// 2d^2 >= 4d for d >= 2), so this is exact for a solve that reaches it,
-// and a workspace of native_workspace_b bytes never runs out.
+//                               and lu_solve's swaps [dd]      6n + d
+// The largest are the subspace step's (10n + 2d^2 + d >= 2n + 4d, as
+// 2d^2 >= 3d for d >= 2; 6n + d ints beside the held 2n), so this is exact
+// for a solve that reaches it, and a workspace of native_workspace_b bytes
+// never runs out.
 LBFGSPP_HD inline long long native_doubles_b(int n, int m, int past) {
   const long long d = 2LL * m, nn = n;
   return d * nn + m + 2 * d * d + 7 * nn + d + dmax(past, 1) +
          10 * nn + 2 * d * d + d;
 }
-LBFGSPP_HD inline long long native_ints_b(int n) {
-  return 2LL * n + 6LL * n;
+LBFGSPP_HD inline long long native_ints_b(int n, int m) {
+  return 2LL * n + 6LL * n + 2LL * m;
 }
 LBFGSPP_HD inline long long native_workspace_b(int n, int m, int past) {
-  return workspace_bytes(native_doubles_b(n, m, past), native_ints_b(n));
+  return workspace_bytes(native_doubles_b(n, m, past), native_ints_b(n, m));
 }
 
 // A vector of at most the capacity it was taken with.
@@ -86,9 +92,10 @@ struct DVec {
   LBFGSPP_HD const double* data() const { return p; }
   LBFGSPP_HD double& operator[](int i) { return p[i]; }
   LBFGSPP_HD const double& operator[](int i) const { return p[i]; }
+  template <class X>
   LBFGSPP_HD void assign(int k, double v) {
     n = k;
-    for (int i = 0; i < k; ++i) p[i] = v;
+    X::each(k, [&](int i) { p[i] = v; });
   }
 };
 
@@ -101,65 +108,91 @@ struct IVec {
   LBFGSPP_HD int& operator[](int i) { return p[i]; }
   LBFGSPP_HD const int& operator[](int i) const { return p[i]; }
   LBFGSPP_HD void clear() { n = 0; }
-  LBFGSPP_HD void push_back(int v) { p[n++] = v; }
+  template <class X>
+  LBFGSPP_HD void push_back(int v) {
+    X::put(p + n, v);
+    ++n;
+  }
 };
 
-LBFGSPP_HD inline double vdot(const double* a, const double* b, int n) {
-  double s = 0.0;
-  for (int i = 0; i < n; ++i) s += a[i] * b[i];
-  return s;
-}
-
-LBFGSPP_HD inline double vnrm2(const double* a, int n) {
-  return dsqrt(vdot(a, a, n));
-}
-
-// std::inner_product(a, a + n, b, 0.0).
+// std::inner_product(a, a + n, b, 0.0): the serial sum of a short vector
+// or of one lane's own output.
 LBFGSPP_HD inline double inner(const double* a, const double* b, int n) {
   double init = 0.0;
   for (int i = 0; i < n; ++i) init = init + a[i] * b[i];
   return init;
 }
 
-// Dense LU solve with partial pivoting for the small middle systems
-// (2m x 2m); `a_in` is copied (lbfgsb.cpp takes it by value) and b solved
-// in place.
-LBFGSPP_HD inline bool lu_solve(const double* a_in, double* b, int n,
-                                Arena& ar) {
-  Mark mark(ar);
-  double* a = ar.doubles(static_cast<long long>(n) * n);
-  copy_n(a, a_in, n * n);
+// Dense LU with partial pivoting (lbfgsb.cpp's lu_solve, split in two so
+// that one factorization serves many right-hand sides with the same
+// operations on each).  lu_factor factors a [n, n] in place (multipliers
+// below the diagonal, swapped with their rows as lu_solve swaps whole rows)
+// with the row swaps in piv, and returns the step whose pivot is zero, or
+// n.  lu_apply puts b (stride apart) through the first kend steps: their
+// swaps first, which carry each entry to the row whose multipliers it
+// met, then their updates; and, when kend == n, the back substitution.
+// Each entry of b so takes lu_solve's operations in its order, and a
+// singular matrix leaves b as lu_solve leaves it.  One lane's code.
+LBFGSPP_HD inline int lu_factor(double* a, int* piv, int n) {
   for (int k = 0; k < n; ++k) {
     int p = k;
     for (int i = k + 1; i < n; ++i)
       if (dabs(a[i * n + k]) > dabs(a[p * n + k])) p = i;
-    if (a[p * n + k] == 0.0) return false;
+    if (a[p * n + k] == 0.0) return k;
+    piv[k] = p;
     if (p != k) {
       for (int j = 0; j < n; ++j) {
         const double t = a[k * n + j];
         a[k * n + j] = a[p * n + j];
         a[p * n + j] = t;
       }
-      const double t = b[k];
-      b[k] = b[p];
-      b[p] = t;
     }
     for (int i = k + 1; i < n; ++i) {
       const double f = a[i * n + k] / a[k * n + k];
       a[i * n + k] = f;
       for (int j = k + 1; j < n; ++j) a[i * n + j] -= f * a[k * n + j];
-      b[i] -= f * b[k];
     }
   }
-  for (int i = n - 1; i >= 0; --i) {
-    for (int j = i + 1; j < n; ++j) b[i] -= a[i * n + j] * b[j];
-    b[i] /= a[i * n + i];
+  return n;
+}
+
+LBFGSPP_HD inline void lu_apply(const double* a, const int* piv, int kend,
+                                double* b, int stride, int n) {
+  for (int k = 0; k < kend; ++k) {
+    const int p = piv[k];
+    if (p != k) {
+      const double t = b[k * stride];
+      b[k * stride] = b[p * stride];
+      b[p * stride] = t;
+    }
   }
-  return true;
+  for (int k = 0; k < kend; ++k)
+    for (int i = k + 1; i < n; ++i)
+      b[i * stride] -= a[i * n + k] * b[k * stride];
+  if (kend < n) return;
+  for (int i = n - 1; i >= 0; --i) {
+    for (int j = i + 1; j < n; ++j) b[i * stride] -= a[i * n + j] * b[j * stride];
+    b[i * stride] /= a[i * n + i];
+  }
+}
+
+// Dense LU solve of the small middle systems (2m x 2m); `a_in` is copied
+// (lbfgsb.cpp takes it by value) and b solved in place.  One lane's code.
+LBFGSPP_HD inline void lu_solve(const double* a_in, double* b, int n,
+                                Arena& ar) {
+  Mark mark(ar);
+  double* a = ar.doubles(static_cast<long long>(n) * n);
+  int* piv = ar.ints(n);
+  for (int i = 0; i < n * n; ++i) a[i] = a_in[i];
+  lu_apply(a, piv, lu_factor(a, piv, n), b, 1, n);
 }
 
 // B-mode history: ring buffer + 2m x 2m middle matrix (BFGSMat.h:99-146),
-// slot-indexed with identity padding exactly like the JAX design.
+// slot-indexed with identity padding exactly like the JAX design.  Its
+// products over the history (W'v, S'S and L rows, the P'BP Gram entries)
+// give each output to one lane, which sums it serially in the reference's
+// order; the products over n-vectors use the policy's reductions.
+template <class X>
 struct BHist {
   int n, m, ncorr, ptr;
   double theta;
@@ -184,13 +217,17 @@ struct BHist {
     ncorr = 0;
     ptr = m_;
     theta = 1.0;
-    for (long long i = 0; i < static_cast<long long>(n) * m; ++i) {
-      s[i] = 0.0;
-      y[i] = 0.0;
-    }
-    for (int i = 0; i < m; ++i) ys[i] = 0.0;
-    for (int i = 0; i < 4 * m * m; ++i) minv[i] = 0.0;
-    for (int i = 0; i < 2 * m; ++i) minv[i * 2 * m + i] = 1.0;
+    X::each(n, [&](int i) {
+      for (int j = 0; j < m; ++j) {
+        s[static_cast<long long>(j) * n + i] = 0.0;
+        y[static_cast<long long>(j) * n + i] = 0.0;
+      }
+    });
+    const int d = 2 * m;
+    X::each(d * d, [&](int t) {
+      minv[t] = (t % (d + 1) == 0) ? 1.0 : 0.0;
+      if (t < m) ys[t] = 0.0;
+    });
     refactor();
   }
 
@@ -207,68 +244,70 @@ struct BHist {
     return y + static_cast<long long>(j) * n;
   }
 
+  // mdense = inv(minv with its SS block scaled by theta): one
+  // factorization on lane 0, then each column on its own lane (the
+  // reference solves column by column, refactoring each time; the
+  // factorization is the same every time, so each column's bits are too).
   LBFGSPP_HD void refactor() {
-    // mdense = inv(minv with SS block scaled by theta), column by column.
     const int d = 2 * m;
     Mark mark(*ar);
     double* scaled = ar->doubles(static_cast<long long>(d) * d);
-    copy_n(scaled, minv, d * d);
-    for (int i = m; i < d; ++i)
-      for (int j = m; j < d; ++j) scaled[i * d + j] *= theta;
-    for (int i = 0; i < d * d; ++i) mdense[i] = 0.0;
-    double* e = ar->doubles(d);
-    for (int c = 0; c < d; ++c) {
-      for (int r = 0; r < d; ++r) e[r] = 0.0;
-      e[c] = 1.0;
-      lu_solve(scaled, e, d, *ar);
-      for (int r = 0; r < d; ++r) mdense[r * d + c] = e[r];
-    }
+    int* piv = ar->ints(d + 1);  // the swaps, then the step lu_factor ended
+    X::each(d * d, [&](int t) {
+      const bool ss = t / d >= m && t % d >= m;
+      scaled[t] = ss ? minv[t] * theta : minv[t];
+    });
+    if (X::leader()) piv[d] = lu_factor(scaled, piv, d);
+    X::sync();
+    const int kend = piv[d];
+    X::each(d, [&](int c) {
+      for (int r = 0; r < d; ++r) mdense[r * d + c] = (r == c) ? 1.0 : 0.0;
+      lu_apply(scaled, piv, kend, mdense + c, d, d);
+    });
   }
 
   LBFGSPP_HD void add(const double* sv, const double* yv) {
     const int loc = ptr % m;
-    copy_n(srow(loc), sv, n);
-    copy_n(yrow(loc), yv, n);
-    const double d = vdot(sv, yv, n);
-    ys[loc] = d;
-    theta = vdot(yv, yv, n) / d;
+    copy2<X>(srow(loc), sv, yrow(loc), yv, n);
+    const double d = dot<X>(sv, yv, n);
+    X::put(ys + loc, d);
+    theta = dot<X>(yv, yv, n) / d;
     if (ncorr < m) ++ncorr;
     ptr = loc + 1;
 
     const int dd = 2 * m;
-    minv[loc * dd + loc] = -d;
+    X::put(minv + loc * dd + loc, -d);
     // S'S row/col (valid slots)
-    for (int j = 0; j < ncorr; ++j) {
-      const double v = vdot(srow(j), sv, n);
+    X::each(ncorr, [&](int j) {
+      const double v = inner(srow(j), sv, n);
       minv[(m + loc) * dd + (m + j)] = v;
       minv[(m + j) * dd + (m + loc)] = v;
-    }
+    });
     // Stale y column when the buffer is full
     if (ncorr >= m) {
-      for (int i = 0; i < m; ++i) {
+      X::each(m, [&](int i) {
         minv[(m + i) * dd + loc] = 0.0;
         minv[loc * dd + (m + i)] = 0.0;
-      }
+      });
     }
     // L row for the new s: ring distance 1..ncorr-1
-    int yloc = (loc + m - 1) % m;
-    for (int i = 0; i < ncorr - 1; ++i) {
-      const double v = vdot(sv, yrow(yloc), n);
+    X::each(ncorr - 1, [&](int t) {
+      const int yloc = (loc + m - 1 - t) % m;
+      const double v = inner(sv, yrow(yloc), n);
       minv[(m + loc) * dd + yloc] = v;
       minv[yloc * dd + (m + loc)] = v;
-      yloc = (yloc + m - 1) % m;
-    }
+    });
     refactor();
   }
 
   // W'v with W = [Y, theta*S]; compact [2*ncorr] (slot order; slots fill
   // sequentially so compact == slot prefix).
   LBFGSPP_HD void apply_wtv(const double* v, DVec& res) const {
-    res.assign(2 * ncorr, 0.0);
-    for (int j = 0; j < ncorr; ++j) {
-      res[j] = vdot(yrow(j), v, n);
-      res[ncorr + j] = theta * vdot(srow(j), v, n);
-    }
+    res.n = 2 * ncorr;
+    X::each(2 * ncorr, [&](int t) {
+      res[t] = t < ncorr ? inner(yrow(t), v, n)
+                         : theta * inner(srow(t - ncorr), v, n);
+    });
   }
 
   // M v on a compact [2*ncorr] vector via the padded dense inverse.
@@ -276,72 +315,67 @@ struct BHist {
     const int d = 2 * m;
     Mark mark(*ar);
     DVec pad(*ar, d);
-    pad.assign(d, 0.0);
-    for (int j = 0; j < ncorr; ++j) {
-      pad[j] = v[j];
-      pad[m + j] = v[ncorr + j];
-    }
-    DVec out(*ar, d);
-    out.assign(d, 0.0);
-    for (int r = 0; r < d; ++r)
-      out[r] = inner(pad.data(), mdense + static_cast<long long>(r) * d, d);
-    res.assign(2 * ncorr, 0.0);
-    for (int j = 0; j < ncorr; ++j) {
-      res[j] = out[j];
-      res[ncorr + j] = out[m + j];
-    }
+    pad.n = d;
+    X::each(d, [&](int r) {
+      pad[r] = r < ncorr ? v[r]
+               : (r >= m && r < m + ncorr) ? v[ncorr + r - m] : 0.0;
+    });
+    res.n = 2 * ncorr;
+    X::each(2 * ncorr, [&](int t) {
+      const int r = t < ncorr ? t : m + t - ncorr;
+      res[t] = inner(pad.data(), mdense + static_cast<long long>(r) * d, d);
+    });
   }
 
   // Row b of W (compact)
   LBFGSPP_HD void wb(int b, DVec& res) const {
-    res.assign(2 * ncorr, 0.0);
-    for (int j = 0; j < ncorr; ++j) {
+    res.n = 2 * ncorr;
+    X::each(ncorr, [&](int j) {
       res[j] = yrow(j)[b];
       res[ncorr + j] = theta * srow(j)[b];
-    }
+    });
   }
 
   LBFGSPP_HD void apply_wtpv(const IVec& pset, const double* v,
                              DVec& res) const {
-    res.assign(2 * ncorr, 0.0);
-    for (int j = 0; j < ncorr; ++j) {
-      double ry = 0.0, rs = 0.0;
-      const double* yp = yrow(j);
-      const double* sp = srow(j);
-      for (int i = 0; i < pset.size(); ++i) {
-        ry += yp[pset[i]] * v[i];
-        rs += sp[pset[i]] * v[i];
-      }
-      res[j] = ry;
-      res[ncorr + j] = theta * rs;
-    }
+    res.n = 2 * ncorr;
+    X::each(2 * ncorr, [&](int t) {
+      const double* row = t < ncorr ? yrow(t) : srow(t - ncorr);
+      double r = 0.0;
+      for (int i = 0; i < pset.size(); ++i) r += row[pset[i]] * v[i];
+      res[t] = t < ncorr ? r : theta * r;
+    });
   }
 
   LBFGSPP_HD void apply_ptwmv(const IVec& pset, const DVec& v, double scale,
                               DVec& res) const {
-    res.assign(pset.size(), 0.0);
-    if (ncorr < 1 || pset.empty()) return;
+    if (ncorr < 1 || pset.empty()) {
+      res.assign<X>(pset.size(), 0.0);
+      return;
+    }
     Mark mark(*ar);
     DVec mv(*ar, 2 * m);
     apply_mv(v, mv);
-    for (int j = 0; j < ncorr; ++j) mv[ncorr + j] *= theta;
-    for (int j = 0; j < ncorr; ++j) {
-      const double* yp = yrow(j);
-      const double* sp = srow(j);
-      for (int i = 0; i < pset.size(); ++i)
-        res[i] += mv[j] * yp[pset[i]] + mv[ncorr + j] * sp[pset[i]];
-    }
-    for (int i = 0; i < res.size(); ++i) res[i] *= scale;
+    res.n = pset.size();
+    X::each(pset.size(), [&](int i) {
+      double r = 0.0;
+      for (int j = 0; j < ncorr; ++j)
+        r += mv[j] * yrow(j)[pset[i]] +
+             (mv[ncorr + j] * theta) * srow(j)[pset[i]];
+      res[i] = r * scale;
+    });
   }
 
   LBFGSPP_HD void compute_ftbab(const IVec& fv, const IVec& act,
                                 const double* drt, DVec& res) const {
-    res.assign(fv.size(), 0.0);
-    if (ncorr < 1 || act.empty() || fv.empty()) return;
+    if (ncorr < 1 || act.empty() || fv.empty()) {
+      res.assign<X>(fv.size(), 0.0);
+      return;
+    }
     Mark mark(*ar);
     DVec ad(*ar, act.size());
-    ad.assign(act.size(), 0.0);
-    for (int i = 0; i < act.size(); ++i) ad[i] = drt[act[i]];
+    ad.n = act.size();
+    X::each(act.size(), [&](int i) { ad[i] = drt[act[i]]; });
     DVec rhs(*ar, 2 * m);
     apply_wtpv(act, ad.data(), rhs);
     apply_ptwmv(fv, rhs, -1.0, res);
@@ -361,79 +395,81 @@ struct BHist {
   LBFGSPP_HD void solve_ptbp(const IVec& pset, const DVec& v,
                              DVec& res) const {
     const int np = pset.size();
-    res.assign(np, 0.0);
+    res.n = np;
     if (np == 0) return;
     if (ncorr < 1) {
-      for (int i = 0; i < np; ++i) res[i] = v[i] / theta;
+      X::each(np, [&](int i) { res[i] = v[i] / theta; });
       return;
     }
     const int c = ncorr, dd = 2 * c, mm = m;
     Mark mark(*ar);
-    // WP rows: wy[j][i] = y_j[p_i], ws[j][i] = s_j[p_i] (raw, no theta)
+    // WP rows: wy[j][i] = y_j[p_i], ws[j][i] = s_j[p_i] (raw, no theta);
+    // the lower-left block, then the upper-right as its transpose
     DVec mid(*ar, dd * dd);
-    mid.assign(dd * dd, 0.0);
-    for (int j = 0; j < c; ++j)
-      for (int k = 0; k < c; ++k) {
-        mid[j * dd + k] = minv[j * 2 * mm + k] - gram(pset, true, j, true, k) /
-            theta;
+    mid.n = dd * dd;
+    X::each(3 * c * c, [&](int t) {
+      const int blk = t / (c * c), j = (t % (c * c)) / c, k = t % c;
+      if (blk == 0)
+        mid[j * dd + k] = minv[j * 2 * mm + k] -
+            gram(pset, true, j, true, k) / theta;
+      else if (blk == 1)
         mid[(c + j) * dd + k] =
             minv[(mm + j) * 2 * mm + k] - gram(pset, false, j, true, k);
-        mid[j * dd + (c + k)] = mid[(c + k) * dd + j];
+      else
         mid[(c + j) * dd + (c + k)] = theta *
             (minv[(mm + j) * 2 * mm + (mm + k)] -
              gram(pset, false, j, false, k));
-      }
-    // Fix the upper-left/lower-left symmetry: recompute upper-right from
-    // lower-left transpose after both are filled.
-    for (int j = 0; j < c; ++j)
-      for (int k = 0; k < c; ++k)
-        mid[j * dd + (c + k)] = mid[(c + k) * dd + j];
+    });
+    X::each(c * c, [&](int t) {
+      const int j = t / c, k = t % c;
+      mid[j * dd + (c + k)] = mid[(c + k) * dd + j];
+    });
 
     DVec wpv(*ar, dd);
-    wpv.assign(dd, 0.0);
-    for (int j = 0; j < c; ++j) {
-      double ry = 0.0, rs = 0.0;
-      const double* yp = yrow(j);
-      const double* sp = srow(j);
-      for (int i = 0; i < np; ++i) {
-        ry += yp[pset[i]] * v[i];
-        rs += sp[pset[i]] * v[i];
-      }
-      wpv[j] = ry;
-      wpv[c + j] = theta * rs;
-    }
-    lu_solve(mid.data(), wpv.data(), dd, *ar);
-    for (int j = 0; j < c; ++j) wpv[c + j] *= theta;
-    for (int i = 0; i < np; ++i) {
+    wpv.n = dd;
+    X::each(dd, [&](int t) {
+      const double* row = t < c ? yrow(t) : srow(t - c);
+      double r = 0.0;
+      for (int i = 0; i < np; ++i) r += row[pset[i]] * v[i];
+      wpv[t] = t < c ? r : theta * r;
+    });
+    if (X::leader()) lu_solve(mid.data(), wpv.data(), dd, *ar);
+    X::sync();
+    X::each(np, [&](int i) {
       double acc = v[i] / theta;
       for (int j = 0; j < c; ++j)
-        acc += (yrow(j)[pset[i]] * wpv[j] + srow(j)[pset[i]] * wpv[c + j]) /
+        acc += (yrow(j)[pset[i]] * wpv[j] +
+                srow(j)[pset[i]] * (wpv[c + j] * theta)) /
             (theta * theta);
       res[i] = acc;
-    }
+    });
   }
 
   LBFGSPP_HD void apply_ptbqv(const IVec& pset, const IVec& qset,
                               const DVec& v, DVec& res) const {
-    res.assign(pset.size(), 0.0);
-    if (ncorr < 1 || pset.empty() || qset.empty()) return;
+    if (ncorr < 1 || pset.empty() || qset.empty()) {
+      res.assign<X>(pset.size(), 0.0);
+      return;
+    }
     Mark mark(*ar);
     DVec rhs(*ar, 2 * m);
     apply_wtpv(qset, v.data(), rhs);
     DVec mv(*ar, 2 * m);
     apply_mv(rhs, mv);
-    for (int j = 0; j < ncorr; ++j) mv[ncorr + j] *= theta;
-    for (int j = 0; j < ncorr; ++j) {
-      const double* yp = yrow(j);
-      const double* sp = srow(j);
-      for (int i = 0; i < pset.size(); ++i)
-        res[i] -= mv[j] * yp[pset[i]] + mv[ncorr + j] * sp[pset[i]];
-    }
+    res.n = pset.size();
+    X::each(pset.size(), [&](int i) {
+      double r = 0.0;
+      for (int j = 0; j < ncorr; ++j)
+        r -= mv[j] * yrow(j)[pset[i]] +
+             (mv[ncorr + j] * theta) * srow(j)[pset[i]];
+      res[i] = r;
+    });
   }
 };
 
 // Stable ascending sort of ord[0, k) by key[ord[i]]: a bottom-up merge
 // that takes from the left run on ties, so it orders as std::stable_sort.
+// One lane's code.
 LBFGSPP_HD inline void stable_sort_by(int* ord, int k, const double* key,
                                       Arena& ar) {
   Mark mark(ar);
@@ -453,43 +489,46 @@ LBFGSPP_HD inline void stable_sort_by(int* ord, int k, const double* key,
     src = dst;
     dst = t;
   }
-  if (src != ord) copy_n(ord, src, k);
+  if (src != ord)
+    for (int i = 0; i < k; ++i) ord[i] = src[i];
 }
 
 // Generalized Cauchy point (Cauchy.h:86-284 semantics).
-LBFGSPP_HD inline void cauchy_point(const BHist& bfgs, const double* x0,
+template <class X>
+LBFGSPP_HD inline void cauchy_point(const BHist<X>& bfgs, const double* x0,
                                     const double* g, const double* lb,
                                     const double* ub, double* xcp,
                                     DVec& vecc, IVec& newact, IVec& fv) {
   const int n = bfgs.n;
   const double inf = kInf;
   Arena& ar = *bfgs.ar;
-  copy_n(xcp, x0, n);
-  vecc.assign(2 * bfgs.ncorr, 0.0);
+  vecc.assign<X>(2 * bfgs.ncorr, 0.0);
   newact.clear();
-  fv.clear();
 
   Mark mark(ar);
   double* brk = ar.doubles(n);
   double* vecd = ar.doubles(n);
   IVec ord(ar, n);
-  for (int i = 0; i < n; ++i) {
+  X::each(n, [&](int i) {
+    xcp[i] = x0[i];
+    double bi;
     if (lb[i] == ub[i])
-      brk[i] = 0.0;
+      bi = 0.0;
     else if (g[i] < 0.0)
-      brk[i] = (x0[i] - ub[i]) / g[i];
+      bi = (x0[i] - ub[i]) / g[i];
     else if (g[i] > 0.0)
-      brk[i] = (x0[i] - lb[i]) / g[i];
+      bi = (x0[i] - lb[i]) / g[i];
     else
-      brk[i] = inf;
-    const bool iszero = brk[i] == 0.0;
-    vecd[i] = iszero ? 0.0 : -g[i];
-    if (brk[i] == inf)
-      fv.push_back(i);
-    else if (!iszero)
-      ord.push_back(i);
-  }
-  stable_sort_by(ord.p, ord.size(), brk, ar);
+      bi = inf;
+    brk[i] = bi;
+    vecd[i] = (bi == 0.0) ? 0.0 : -g[i];
+  });
+  fv.n = X::compact(n, [&](int i) { return brk[i] == inf; },
+                    [&](int k, int i) { fv[k] = i; });
+  ord.n = X::compact(n, [&](int i) { return brk[i] != inf && brk[i] != 0.0; },
+                     [&](int k, int i) { ord[k] = i; });
+  if (X::leader()) stable_sort_by(ord.p, ord.size(), brk, ar);
+  X::sync();
 
   const int nord = ord.size();
   const int nfree = fv.size();
@@ -498,7 +537,7 @@ LBFGSPP_HD inline void cauchy_point(const BHist& bfgs, const double* x0,
   const int m2 = 2 * bfgs.m;
   DVec vecp(ar, m2), cache(ar, m2), wact(ar, m2);
   bfgs.apply_wtv(vecd, vecp);
-  double fp = -vdot(vecd, vecd, n);
+  double fp = -dot<X>(vecd, vecd, n);
   double fpp;
   if (bfgs.ncorr >= 1) {
     bfgs.apply_mv(vecp, cache);
@@ -514,25 +553,27 @@ LBFGSPP_HD inline void cauchy_point(const BHist& bfgs, const double* x0,
 
   bool crossed_all = false;
   while (deltatmin >= deltat) {
-    for (int j = 0; j < vecc.size(); ++j) vecc[j] += deltat * vecp[j];
+    X::each(vecc.size(), [&](int j) { vecc[j] += deltat * vecp[j]; });
     const int act_begin = b;
     int i = b;
     while (i < nord && brk[ord[i]] <= iu) ++i;
     const int act_end = i - 1;
     if (nfree == 0 && act_end == nord - 1) {
-      for (int k = act_begin; k <= act_end; ++k) {
-        const int act = ord[k];
+      X::each(act_end - act_begin + 1, [&](int t) {
+        const int act = ord[act_begin + t];
         xcp[act] = (vecd[act] > 0.0) ? ub[act] : lb[act];
-        newact.push_back(act);
-      }
+        newact[newact.n + t] = act;
+      });
+      newact.n += act_end - act_begin + 1;
       crossed_all = true;
       break;
     }
     fp += deltat * fpp;
     for (int k = act_begin; k <= act_end; ++k) {
       const int act = ord[k];
-      xcp[act] = (vecd[act] > 0.0) ? ub[act] : lb[act];
-      const double zact = xcp[act] - x0[act];
+      const double xact = (vecd[act] > 0.0) ? ub[act] : lb[act];
+      X::put(xcp + act, xact);
+      const double zact = xact - x0[act];
       const double gact = g[act];
       const double ggact = gact * gact;
       bfgs.wb(act, wact);
@@ -542,9 +583,10 @@ LBFGSPP_HD inline void cauchy_point(const BHist& bfgs, const double* x0,
       const double cd_w = inner(cache.data(), wact.data(), cache.size());
       fp += ggact + bfgs.theta * gact * zact - gact * cd_c;
       fpp -= bfgs.theta * ggact + 2.0 * gact * cd_p + ggact * cd_w;
-      for (int j = 0; j < vecp.size(); ++j) vecp[j] += gact * wact[j];
-      vecd[act] = 0.0;
-      newact.push_back(act);
+      X::sync();  // every lane has read vecp before it changes
+      X::each(vecp.size(), [&](int j) { vecp[j] += gact * wact[j]; });
+      X::put(vecd + act, 0.0);
+      newact.push_back<X>(act);
     }
     deltatmin = -fp / fpp;
     il = iu;
@@ -558,180 +600,191 @@ LBFGSPP_HD inline void cauchy_point(const BHist& bfgs, const double* x0,
   if (fpp < eps) deltatmin = -fp / eps;
   if (!crossed_all) {
     deltatmin = dmax(deltatmin, 0.0);
-    for (int j = 0; j < vecc.size(); ++j) vecc[j] += deltatmin * vecp[j];
+    X::each(vecc.size(), [&](int j) { vecc[j] += deltatmin * vecp[j]; });
     const double tfinal = il + deltatmin;
-    for (int i = 0; i < nfree; ++i) {
-      const int coord = fv[i];
+    X::each(nord - b + nfree, [&](int t) {
+      const int coord = t < nfree ? fv[t] : ord[b + t - nfree];
       xcp[coord] = x0[coord] + tfinal * vecd[coord];
-    }
-    for (int i = b; i < nord; ++i) {
-      const int coord = ord[i];
-      xcp[coord] = x0[coord] + tfinal * vecd[coord];
-      fv.push_back(coord);
-    }
+      if (t >= nfree) fv[t] = coord;
+    });
+    fv.n = nfree + nord - b;
   }
 }
 
 // BOXCQP subspace minimization (SubspaceMin.h:122-302 semantics).
-LBFGSPP_HD inline void subspace_minimize(const BHist& bfgs, const double* x0,
-                                         const double* xcp, const double* g,
-                                         const double* lb, const double* ub,
-                                         const IVec& newact, const IVec& fv,
-                                         int maxit, double* drt) {
+template <class X>
+LBFGSPP_HD inline void subspace_minimize(const BHist<X>& bfgs,
+                                         const double* x0, const double* xcp,
+                                         const double* g, const double* lb,
+                                         const double* ub, const IVec& newact,
+                                         const IVec& fv, int maxit,
+                                         double* drt) {
   const int n = bfgs.n;
   const double eps = kEps;
   Arena& ar = *bfgs.ar;
-  for (int i = 0; i < n; ++i) drt[i] = xcp[i] - x0[i];
+  X::each(n, [&](int i) { drt[i] = xcp[i] - x0[i]; });
   const int nfree = fv.size();
   if (nfree < 1) return;
 
   Mark mark(ar);
   DVec vecc(ar, nfree);
   bfgs.compute_ftbab(fv, newact, drt, vecc);
-  DVec vecl(ar, nfree), vecu(ar, nfree);
-  vecl.assign(nfree, 0.0);
-  vecu.assign(nfree, 0.0);
-  for (int i = 0; i < nfree; ++i) {
+  DVec vecl(ar, nfree), vecu(ar, nfree), negc(ar, nfree);
+  vecl.n = vecu.n = negc.n = nfree;
+  X::each(nfree, [&](int i) {
     const int coord = fv[i];
     vecl[i] = lb[coord] - x0[coord];
     vecu[i] = ub[coord] - x0[coord];
     vecc[i] += g[coord];
-  }
-  DVec negc(ar, nfree);
-  negc.assign(nfree, 0.0);
-  for (int i = 0; i < nfree; ++i) negc[i] = -vecc[i];
+    negc[i] = -vecc[i];
+  });
   DVec vecy(ar, nfree);
   bfgs.solve_ptbp(fv, negc, vecy);
 
-  bool feasible = true;
-  for (int i = 0; i < nfree; ++i)
-    if (vecy[i] < vecl[i] || vecy[i] > vecu[i]) {
-      feasible = false;
-      break;
-    }
+  const bool feasible = !X::any(nfree, [&](int i) {
+    return vecy[i] < vecl[i] || vecy[i] > vecu[i];
+  });
   if (feasible) {
-    for (int i = 0; i < nfree; ++i) drt[fv[i]] = vecy[i];
+    X::each(nfree, [&](int i) { drt[fv[i]] = vecy[i]; });
     return;
   }
 
-  DVec yfb(ar, nfree);
-  yfb.assign(nfree, 0.0);
-  copy_n(yfb.data(), vecy.data(), nfree);
-  DVec lam(ar, nfree), mu(ar, nfree);
-  lam.assign(nfree, 0.0);
-  mu.assign(nfree, 0.0);
+  DVec yfb(ar, nfree), lam(ar, nfree), mu(ar, nfree);
+  yfb.n = lam.n = mu.n = nfree;
+  X::each(nfree, [&](int i) {
+    yfb[i] = vecy[i];
+    lam[i] = 0.0;
+    mu[i] = 0.0;
+  });
+  const auto in_l = [&](int i) {
+    return vecy[i] < vecl[i] || (vecy[i] == vecl[i] && lam[i] >= 0.0);
+  };
+  const auto in_u = [&](int i) {
+    return !in_l(i) &&
+           (vecy[i] > vecu[i] || (vecy[i] == vecu[i] && mu[i] >= 0.0));
+  };
   int k = 0;
   for (k = 0; k < maxit; ++k) {
     Mark iteration(ar);
     IVec lset(ar, nfree), uset(ar, nfree), pset(ar, nfree);
     IVec yl(ar, nfree), yu(ar, nfree), yp(ar, nfree);
-    for (int i = 0; i < nfree; ++i) {
-      const int coord = fv[i];
-      const double li = vecl[i], ui = vecu[i];
-      if (vecy[i] < li || (vecy[i] == li && lam[i] >= 0.0)) {
-        lset.push_back(coord);
-        yl.push_back(i);
-        vecy[i] = li;
+    lset.n = yl.n = X::compact(nfree, in_l, [&](int t, int i) {
+      lset[t] = fv[i];
+      yl[t] = i;
+    });
+    uset.n = yu.n = X::compact(nfree, in_u, [&](int t, int i) {
+      uset[t] = fv[i];
+      yu[t] = i;
+    });
+    pset.n = yp.n = X::compact(
+        nfree, [&](int i) { return !in_l(i) && !in_u(i); },
+        [&](int t, int i) {
+          pset[t] = fv[i];
+          yp[t] = i;
+        });
+    X::each(nfree, [&](int i) {
+      if (in_l(i)) {
+        vecy[i] = vecl[i];
         mu[i] = 0.0;
-      } else if (vecy[i] > ui || (vecy[i] == ui && mu[i] >= 0.0)) {
-        uset.push_back(coord);
-        yu.push_back(i);
-        vecy[i] = ui;
+      } else if (in_u(i)) {
+        vecy[i] = vecu[i];
         lam[i] = 0.0;
       } else {
-        pset.push_back(coord);
-        yp.push_back(i);
         lam[i] = 0.0;
         mu[i] = 0.0;
       }
-    }
+    });
     if (!yp.empty()) {
       DVec rhs(ar, yp.size());
-      rhs.assign(yp.size(), 0.0);
-      for (int i = 0; i < yp.size(); ++i) rhs[i] = vecc[yp[i]];
+      rhs.n = yp.size();
+      X::each(yp.size(), [&](int i) { rhs[i] = vecc[yp[i]]; });
       DVec ll(ar, yl.size()), uu(ar, yu.size()), tmp(ar, yp.size());
-      ll.assign(yl.size(), 0.0);
-      uu.assign(yu.size(), 0.0);
-      for (int i = 0; i < yl.size(); ++i) ll[i] = vecl[yl[i]];
-      for (int i = 0; i < yu.size(); ++i) uu[i] = vecu[yu[i]];
+      ll.n = yl.size();
+      uu.n = yu.size();
+      X::each(dmax(yl.size(), yu.size()), [&](int i) {
+        if (i < yl.size()) ll[i] = vecl[yl[i]];
+        if (i < yu.size()) uu[i] = vecu[yu[i]];
+      });
       bfgs.apply_ptbqv(pset, lset, ll, tmp);
-      for (int i = 0; i < yp.size(); ++i) rhs[i] += tmp[i];
+      X::each(yp.size(), [&](int i) { rhs[i] += tmp[i]; });
       bfgs.apply_ptbqv(pset, uset, uu, tmp);
-      for (int i = 0; i < yp.size(); ++i) rhs[i] += tmp[i];
-      for (int i = 0; i < rhs.size(); ++i) rhs[i] = -rhs[i];
+      X::each(yp.size(), [&](int i) {
+        rhs[i] += tmp[i];
+        rhs[i] = -rhs[i];
+      });
       bfgs.solve_ptbp(pset, rhs, tmp);
-      for (int i = 0; i < yp.size(); ++i) vecy[yp[i]] = tmp[i];
+      X::each(yp.size(), [&](int i) { vecy[yp[i]] = tmp[i]; });
     }
     DVec fy(ar, 2 * bfgs.m);
     if (!yl.empty() || !yu.empty()) bfgs.apply_wtpv(fv, vecy.data(), fy);
     if (!yl.empty()) {
       DVec res(ar, lset.size());
       bfgs.apply_ptwmv(lset, fy, -1.0, res);
-      for (int i = 0; i < yl.size(); ++i)
+      X::each(yl.size(), [&](int i) {
         lam[yl[i]] = res[i] + vecc[yl[i]] + bfgs.theta * vecy[yl[i]];
+      });
     }
     if (!yu.empty()) {
       DVec res(ar, uset.size());
       bfgs.apply_ptwmv(uset, fy, -1.0, res);
-      for (int i = 0; i < yu.size(); ++i)
+      X::each(yu.size(), [&](int i) {
         mu[yu[i]] = -(res[i] + vecc[yu[i]] + bfgs.theta * vecy[yu[i]]);
+      });
     }
-    bool conv = true;
-    for (int i = 0; i < yl.size() && conv; ++i)
-      if (lam[yl[i]] < 0.0) conv = false;
-    for (int i = 0; i < yu.size() && conv; ++i)
-      if (mu[yu[i]] < 0.0) conv = false;
-    for (int i = 0; i < yp.size() && conv; ++i)
-      if (vecy[yp[i]] < vecl[yp[i]] || vecy[yp[i]] > vecu[yp[i]])
-        conv = false;
+    const bool conv =
+        !X::any(yl.size(), [&](int i) { return lam[yl[i]] < 0.0; }) &&
+        !X::any(yu.size(), [&](int i) { return mu[yu[i]] < 0.0; }) &&
+        !X::any(yp.size(), [&](int i) {
+          return vecy[yp[i]] < vecl[yp[i]] || vecy[yp[i]] > vecu[yp[i]];
+        });
     if (conv) break;
   }
   if (k >= maxit) {
     // 3-level fallback
-    for (int i = 0; i < nfree; ++i)
+    X::each(nfree, [&](int i) {
       drt[fv[i]] = dmin(dmax(vecy[i], vecl[i]), vecu[i]);
-    if (vdot(drt, g, n) <= -eps) return;
-    for (int i = 0; i < nfree; ++i)
+    });
+    if (dot<X>(drt, g, n) <= -eps) return;
+    X::each(nfree, [&](int i) {
       drt[fv[i]] = dmin(dmax(yfb[i], vecl[i]), vecu[i]);
-    if (vdot(drt, g, n) <= -eps) return;
-    for (int i = 0; i < nfree; ++i) drt[fv[i]] = yfb[i];
+    });
+    if (dot<X>(drt, g, n) <= -eps) return;
+    X::each(nfree, [&](int i) { drt[fv[i]] = yfb[i]; });
     return;
   }
-  for (int i = 0; i < nfree; ++i) drt[fv[i]] = vecy[i];
+  X::each(nfree, [&](int i) { drt[fv[i]] = vecy[i]; });
 }
 
+template <class X>
 LBFGSPP_HD inline void force_bounds(double* x, const double* lb,
                                     const double* ub, int n) {
-  for (int i = 0; i < n; ++i) x[i] = dmin(dmax(x[i], lb[i]), ub[i]);
+  X::each(n, [&](int i) { x[i] = dmin(dmax(x[i], lb[i]), ub[i]); });
 }
 
+template <class X>
 LBFGSPP_HD inline double proj_grad_norm(const double* x, const double* g,
                                         const double* lb, const double* ub,
                                         int n) {
-  double r = 0.0;
-  for (int i = 0; i < n; ++i) {
+  return X::reduce(n, 0.0, [&](int i) {
     const double p = dmin(dmax(x[i] - g[i], lb[i]), ub[i]) - x[i];
-    r = dmax(r, dabs(p));
-  }
-  return r;
+    return dabs(p);
+  }, Max{});
 }
 
+template <class X>
 LBFGSPP_HD inline double max_step_size_b(const double* x, const double* d,
                                          const double* lb, const double* ub,
                                          int n) {
-  double step = kInf;
-  for (int i = 0; i < n; ++i) {
-    if (d[i] > 0.0)
-      step = dmin(step, (ub[i] - x[i]) / d[i]);
-    else if (d[i] < 0.0)
-      step = dmin(step, (lb[i] - x[i]) / d[i]);
-  }
-  return step;
+  return X::reduce(n, kInf, [&](int i) {
+    if (d[i] > 0.0) return (ub[i] - x[i]) / d[i];
+    if (d[i] < 0.0) return (lb[i] - x[i]) / d[i];
+    return kInf;
+  }, Min{});
 }
 
 // The More-Thuente search as lbfgsb.cpp reaches it (core.cpp's
 // lbfgspp_native_morethuente_c): a Params holding only the search's fields.
-template <class F>
+template <class X, class F>
 LBFGSPP_HD LsResult morethuente_b(const F& f, Arena& ar, int max_linesearch,
                                   double min_step, double ftol, double wolfe,
                                   const double* xp, const double* drt,
@@ -744,20 +797,21 @@ LBFGSPP_HD LsResult morethuente_b(const F& f, Arena& ar, int max_linesearch,
   p.max_step = 1e20;
   p.ftol = ftol;
   p.wolfe = wolfe;
-  return ls_morethuente(f, ar, p, xp, drt, step_max, step_in, fx_in, x, grad,
-                        dg_in, n);
+  return ls_morethuente<X>(f, ar, p, xp, drt, step_max, step_in, fx_in, x,
+                           grad, dg_in, n);
 }
 
 // Full L-BFGS-B solve (LBFGSB.h:117-262 semantics) on a workspace of
-// native_workspace_b(n, p.m, p.past) bytes.  Returns a Status code.
-template <class F>
+// native_workspace_b(n, p.m, p.past) bytes.  Returns a Status code (on
+// every lane; lane 0 writes the outputs).
+template <class X, class F>
 LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
                           const double* ub, const ParamsB& p, void* ws,
                           double* out_fx, double* out_pgnorm, int* out_niter,
                           int* out_nfev) {
-  Arena ar(ws, native_doubles_b(n, p.m, p.past), native_ints_b(n));
-  force_bounds(x, lb, ub, n);
-  BHist bfgs(n, p.m, ar);
+  Arena ar(ws, native_doubles_b(n, p.m, p.past), native_ints_b(n, p.m));
+  force_bounds<X>(x, lb, ub, n);
+  BHist<X> bfgs(n, p.m, ar);
   double* grad = ar.doubles(n);
   double* xp = ar.doubles(n);
   double* gradp = ar.doubles(n);
@@ -769,40 +823,38 @@ LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
   IVec newact(ar, n), fvset(ar, n);
   const int nring = dmax(p.past, 1);
   double* fx_ring = ar.doubles(nring);
-  for (int i = 0; i < nring; ++i) fx_ring[i] = 0.0;
+  X::each(nring, [&](int i) { fx_ring[i] = 0.0; });
   const double eps_machine = kEps;
 
-  double fx = f(x, grad, n);
+  double fx = f(X{}, x, grad, n);
   int nfev = 1;
-  double pg = proj_grad_norm(x, grad, lb, ub, n);
-  if (p.past > 0) fx_ring[0] = fx;
+  double pg = proj_grad_norm<X>(x, grad, lb, ub, n);
+  if (p.past > 0) X::put(fx_ring, fx);
 
   int k = 1;
   int status = kRunning;
-  if (pg <= p.epsilon || pg <= p.epsilon_rel * vnrm2(x, n)) {
+  if (pg <= p.epsilon || pg <= p.epsilon_rel * nrm2<X>(x, n)) {
     status = kConvergedGrad;
   } else {
     cauchy_point(bfgs, x, grad, lb, ub, xcp, vecc, newact, fvset);
-    for (int i = 0; i < n; ++i) drt[i] = xcp[i] - x[i];
-    const double dn = vnrm2(drt, n);
-    if (dn > 0.0)
-      for (int i = 0; i < n; ++i) drt[i] /= dn;
+    X::each(n, [&](int i) { drt[i] = xcp[i] - x[i]; });
+    const double dn = nrm2<X>(drt, n);
+    if (dn > 0.0) X::each(n, [&](int i) { drt[i] /= dn; });
 
     for (;;) {
-      copy_n(xp, x, n);
-      copy_n(gradp, grad, n);
-      double dg = vdot(grad, drt, n);
-      double step_max = max_step_size_b(x, drt, lb, ub, n);
+      copy2<X>(xp, x, gradp, grad, n);
+      double dg = dot<X>(grad, drt, n);
+      double step_max = max_step_size_b<X>(x, drt, lb, ub, n);
       if (dg >= 0.0 || step_max <= p.min_step) {
-        for (int i = 0; i < n; ++i) drt[i] = xcp[i] - x[i];
+        X::each(n, [&](int i) { drt[i] = xcp[i] - x[i]; });
         bfgs.reset(n, p.m);
-        dg = vdot(grad, drt, n);
-        step_max = max_step_size_b(x, drt, lb, ub, n);
+        dg = dot<X>(grad, drt, n);
+        step_max = max_step_size_b<X>(x, drt, lb, ub, n);
       }
       step_max = dmin(p.max_step, step_max);
       double step = dmin(1.0, step_max);
 
-      const LsResult ls = morethuente_b(
+      const LsResult ls = morethuente_b<X>(
           f, ar, p.max_linesearch, p.min_step, p.ftol, p.wolfe, xp, drt,
           step_max, step, fx, x, grad, dg, n);
       nfev += ls.nfev;
@@ -811,8 +863,8 @@ LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
         status = ls.status;
         break;
       }
-      pg = proj_grad_norm(x, grad, lb, ub, n);
-      if (pg <= p.epsilon || pg <= p.epsilon_rel * vnrm2(x, n)) {
+      pg = proj_grad_norm<X>(x, grad, lb, ub, n);
+      if (pg <= p.epsilon || pg <= p.epsilon_rel * nrm2<X>(x, n)) {
         status = kConvergedGrad;
         break;
       }
@@ -824,19 +876,21 @@ LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
           status = kConvergedDelta;
           break;
         }
-        fx_ring[k % p.past] = fx;
+        X::sync();  // every lane has read fxd before lane 0 overwrites it
+        X::put(fx_ring + k % p.past, fx);
       }
       if (p.max_iterations != 0 && k >= p.max_iterations) {
         status = kMaxIterations;
         break;
       }
-      for (int i = 0; i < n; ++i) {
+      X::each(n, [&](int i) {
         vs[i] = x[i] - xp[i];
         vy[i] = grad[i] - gradp[i];
-      }
-      if (vdot(vs, vy, n) > eps_machine * vdot(vy, vy, n)) bfgs.add(vs, vy);
+      });
+      if (dot<X>(vs, vy, n) > eps_machine * dot<X>(vy, vy, n))
+        bfgs.add(vs, vy);
 
-      force_bounds(x, lb, ub, n);
+      force_bounds<X>(x, lb, ub, n);
       cauchy_point(bfgs, x, grad, lb, ub, xcp, vecc, newact, fvset);
       subspace_minimize(bfgs, x, xcp, grad, lb, ub, newact, fvset,
                         p.max_submin, drt);
@@ -844,10 +898,10 @@ LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
     }
   }
 
-  *out_fx = fx;
-  *out_pgnorm = pg;
-  *out_niter = k;
-  *out_nfev = nfev;
+  X::put(out_fx, fx);
+  X::put(out_pgnorm, pg);
+  X::put(out_niter, k);
+  X::put(out_nfev, nfev);
   return ar.exhausted ? kWorkspaceExhausted : status;
 }
 

@@ -3,23 +3,32 @@
 The port's counterpart of ``lbfgspp_tpu.native``, with its names.  One C++
 source (``csrc/native/core.h``, ``lbfgsb.h``: the JAX package's
 ``core.cpp`` and ``lbfgsb.cpp`` with every function ``__host__
-__device__``, every vector a slice of one workspace and the objective a
-functor) is built twice:
+__device__`` and templated on an execution policy, every vector a slice of
+one workspace and the objective a functor) is built twice:
 
-* for the card (``csrc/native/batch.cu``, nvcc): one GPU thread per
-  instance, a builtin objective; :func:`native_lbfgs_batch` and
-  :func:`native_lbfgsb_batch` launch it;
-* for the host (``csrc/native/host.cpp``, g++ with the JAX module's flags,
-  bit-identical to ``lbfgspp_tpu.native`` on the same machine): the C ABI
-  of its ``libnative.so`` and the threaded batches through ctypes, and a
-  CPython binding (``csrc/native/fastcall.cpp``) for builtin single
-  solves.
+* for the card (``csrc/native/batch.cu``, nvcc, the ``Warp`` policy): one
+  warp per instance, a builtin objective; :func:`native_lbfgs_batch` and
+  :func:`native_lbfgsb_batch` launch it, ``W`` warps a block as the card's
+  shared memory and occupancy allow (:func:`plan`).  Each warp's workspace
+  is its slice of the block's shared memory when the block's ``W`` fit the
+  card's limit (x copied in and out), else a row of a ``[B, stride]``
+  buffer the wrapper allocates in device memory;
+* for the host (``csrc/native/host.cpp``, g++ with the JAX module's flags):
+  under the ``Serial`` policy, bit-identical to ``lbfgspp_tpu.native`` on
+  the same machine, the C ABI of its ``libnative.so`` and the threaded
+  batches through ctypes, and a CPython binding
+  (``csrc/native/fastcall.cpp``) for builtin single solves; and under the
+  ``Lanes`` policy, the card's arithmetic on one thread per solve
+  (:func:`_lanes_batch`, :func:`_lanes_b_batch`: not an entry point, the
+  tests' and ``chip_smoke.py``'s witness).
 
-Both compilers contract multiply-adds into FMAs, each in its own places, so
-the card's and the host's solves part in the last bits.  The kernels'
-wrappers take ``contract=False`` for a second pair of builds with no
-contraction (nvcc ``-fmad=false``, g++ ``-ffp-contract=off``), whose card
-and host solves are bit-identical.
+The card's warp sums each reduction as 32 strided partials and a butterfly,
+where ``lbfgspp_tpu.native`` sums in index order, and both compilers
+contract multiply-adds into FMAs, each in its own places, so the card's and
+the JAX-identical host solves part in the last bits.  The kernels'
+wrappers take ``contract=False`` for the builds with no contraction (nvcc
+``-fmad=false``, g++ ``-ffp-contract=off``): the card's is bit for bit the
+``Lanes`` host build's without contraction.
 
 Where a call runs:
 
@@ -162,15 +171,18 @@ def _host(contract: bool = True) -> ctypes.CDLL:
             _OBJ_CB, p, ctypes.c_int, ctypes.c_int, p, p, ctypes.c_int,
             p, p, p, p]
         lib.lbfgspp_native_minimize.restype = ctypes.c_int
-        lib.lbfgspp_native_minimize_b.argtypes = [
-            _OBJ_CB, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p]
-        lib.lbfgspp_native_minimize_b.restype = ctypes.c_int
-        lib.lbfgspp_native_minimize_batch.argtypes = [
-            i, i, ll, p, p, i, p, p, p, p, p, i]
-        lib.lbfgspp_native_minimize_batch.restype = None
-        lib.lbfgspp_native_minimize_b_batch.argtypes = [
-            i, i, ll, p, p, p, p, p, p, p, p, p, i]
-        lib.lbfgspp_native_minimize_b_batch.restype = None
+        for fn in (lib.lbfgspp_native_minimize_b,
+                   lib.lbfgspp_native_lanes_minimize_b):
+            fn.argtypes = [_OBJ_CB, p, i, i, p, p, p, p, p, p, p, p]
+            fn.restype = i
+        for fn in (lib.lbfgspp_native_minimize_batch,
+                   lib.lbfgspp_native_lanes_batch):
+            fn.argtypes = [i, i, ll, p, p, i, p, p, p, p, p, i]
+            fn.restype = None
+        for fn in (lib.lbfgspp_native_minimize_b_batch,
+                   lib.lbfgspp_native_lanes_b_batch):
+            fn.argtypes = [i, i, ll, p, p, p, p, p, p, p, p, p, i]
+            fn.restype = None
         for fn in (lib.lbfgspp_native_workspace,
                    lib.lbfgspp_native_workspace_b):
             fn.argtypes = [i] * 3
@@ -196,17 +208,23 @@ def _fast():
 
 def _device_lib(contract: bool = True) -> ctypes.CDLL:
     """The card build (csrc/native/batch.cu), loaded and typed."""
-    lib = cuda_build.load(
+    return _typed_device(cuda_build.load(
         "native_batch" if contract else "native_batch_exact", _CUDA_SOURCES,
-        () if contract else _NO_CONTRACT["cuda"])
+        () if contract else _NO_CONTRACT["cuda"]))
+
+
+def _typed_device(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A build of csrc/native/batch.cu with its C functions typed."""
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.lbfgspp_native_lbfgs_batch.argtypes = [
-            i, ll, i, p, p, i, p, ll, p, p, p, p, p, p]
+            i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p]
         lib.lbfgspp_native_lbfgs_batch.restype = i
         lib.lbfgspp_native_lbfgsb_batch.argtypes = [
-            i, ll, i, p, p, p, p, p, ll, p, p, p, p, p, p]
+            i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p]
         lib.lbfgspp_native_lbfgsb_batch.restype = i
+        lib.lbfgspp_native_plan.argtypes = [i, i, i, i, p, p, p]
+        lib.lbfgspp_native_plan.restype = i
         for fn in (lib.lbfgspp_native_workspace,
                    lib.lbfgspp_native_workspace_b):
             fn.argtypes = [i] * 3
@@ -336,8 +354,76 @@ def _check_rows(xs: Tensor, what: str, *others) -> None:
 def _threads(threads: Optional[int], device) -> int:
     if threads is not None and device.type != "cpu":
         raise ValueError("threads= is the host build's; the card runs one "
-                         "thread per instance")
+                         "warp per instance")
     return -1 if threads is None else int(threads)
+
+
+class Plan(NamedTuple):
+    warps: int           # instances (warps) a block
+    blocks_per_sm: int   # blocks resident on an SM
+    shared_bytes: int    # dynamic shared memory a block; 0: device memory
+
+    @property
+    def placement(self) -> str:
+        return "shared" if self.shared_bytes else "global"
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(lib: ctypes.CDLL, box: bool, n: int, m: int, past: int,
+          device: int) -> Plan:
+    vals = (ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
+    with torch.cuda.device(device):
+        err = lib.lbfgspp_native_plan(int(box), n, m, past,
+                                      *(ctypes.byref(v) for v in vals))
+    _launch_check(lib, err, "the native kernels' plan")
+    return Plan(*(v.value for v in vals))
+
+
+def plan(box: bool, n: int, params, device="cuda",
+         lib: Optional[ctypes.CDLL] = None) -> Plan:
+    """How the card runs ``native_lbfgsb_batch`` (``box``) or
+    ``native_lbfgs_batch`` at ``n`` and ``params`` (its ``m`` and
+    ``past``): warps per block, blocks resident per SM and the block's
+    shared memory (0 when the workspace is in device memory).  ``lib``: a
+    build of its own (``tools/native_study.py``'s register caps)."""
+    dev = torch.device(device)
+    return _plan(lib or _device_lib(), bool(box), n, params.m, params.past,
+                 torch.cuda.current_device() if dev.index is None
+                 else dev.index)
+
+
+def _launch(lib: ctypes.CDLL, box: bool, bid: int, xs: Tensor, params,
+            ls: int, out: _Out, lb: Optional[Tensor] = None,
+            ub: Optional[Tensor] = None,
+            warps: Optional[int] = None) -> None:
+    """Launch a build's native kernel on ``xs``'s device with the plan's
+    warps per block (or ``warps``) and its workspace placement; raises if
+    the card refuses the launch."""
+    batch, n = xs.shape
+    pl = plan(box, n, params, xs.device, lib)
+    ws, stride = None, 0
+    if not pl.shared_bytes:
+        size = (lib.lbfgspp_native_workspace_b if box
+                else lib.lbfgspp_native_workspace)(n, params.m, params.past)
+        stride = -(-size // 8)
+        ws = torch.empty(batch, stride, dtype=torch.float64,
+                         device=xs.device)
+    w = pl.warps if warps is None else warps
+    wsp = None if ws is None else ws.data_ptr()
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        if box:
+            err = lib.lbfgspp_native_lbfgsb_batch(
+                bid, batch, n, xs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+                ctypes.addressof(_cparams_b(params)), wsp, stride, w,
+                *(t.data_ptr() for t in out), stream)
+        else:
+            err = lib.lbfgspp_native_lbfgs_batch(
+                bid, batch, n, xs.data_ptr(),
+                ctypes.addressof(_cparams(params)), ls, wsp, stride, w,
+                *(t.data_ptr() for t in out), stream)
+    _launch_check(lib, err, "native_lbfgsb_batch" if box
+                  else "native_lbfgs_batch")
 
 
 def native_lbfgs_batch(fun: str, xs: Tensor, params: LBFGSParams,
@@ -349,11 +435,13 @@ def native_lbfgs_batch(fun: str, xs: Tensor, params: LBFGSParams,
     status [B]``.
 
     A CUDA tensor launches ``native_lbfgs_batch`` (csrc/native/batch.cu; one
-    thread per instance), counted in ``native_lbfgs_batch.launches``; a
-    CPU tensor takes the host build's threaded batch over ``threads`` OS
-    threads (default: every hardware thread).  ``contract=False`` takes
-    the builds without multiply-add contraction, whose card and host
-    results are bit-identical."""
+    warp per instance, its workspace in shared memory when :func:`plan`
+    finds room), counted in ``native_lbfgs_batch.launches``; a CPU tensor
+    takes the host build's threaded batch over ``threads`` OS threads
+    (default: every hardware thread), bit-identical to
+    ``lbfgspp_tpu.native``.  ``contract=False`` takes the builds without
+    multiply-add contraction: the card's is then bit for bit
+    :func:`_lanes_batch`'s without contraction."""
     _check_rows(xs, "native_lbfgs_batch")
     batch, n = xs.shape
     bid, ls = _builtin_id(fun, n), _ls_kind(line_search)
@@ -366,15 +454,7 @@ def native_lbfgs_batch(fun: str, xs: Tensor, params: LBFGSParams,
         return out
     if xs.device.type != "cuda":
         raise ValueError(f"native_lbfgs_batch: no kernel for {xs.device}")
-    lib = _device_lib(contract)
-    stride = -(-lib.lbfgspp_native_workspace(n, params.m, params.past) // 8)
-    ws = torch.empty(batch, stride, dtype=torch.float64, device=xs.device)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.lbfgspp_native_lbfgs_batch(
-            bid, batch, n, xs.data_ptr(), ctypes.addressof(_cparams(params)),
-            ls, ws.data_ptr(), stride, *(t.data_ptr() for t in out), stream)
-    _launch_check(lib, err, "native_lbfgs_batch")
+    _launch(_device_lib(contract), False, bid, xs, params, ls, out)
     native_lbfgs_batch.launches += 1
     return out
 
@@ -388,9 +468,10 @@ def native_lbfgsb_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
     ``, niter, nfev, status [B]``.
 
     A CUDA tensor launches ``native_lbfgsb_batch`` (csrc/native/batch.cu;
-    one thread per instance), counted in ``native_lbfgsb_batch.launches``;
+    one warp per instance), counted in ``native_lbfgsb_batch.launches``;
     a CPU tensor takes the host build's threaded batch, as
-    :func:`native_lbfgs_batch` does, and ``contract`` is its."""
+    :func:`native_lbfgs_batch` does, and ``contract`` is its
+    (:func:`_lanes_b_batch` is the card's witness)."""
     _check_rows(xs, "native_lbfgsb_batch", ("lb", lb), ("ub", ub))
     batch, n = xs.shape
     bid = _builtin_id(fun, n)
@@ -404,18 +485,39 @@ def native_lbfgsb_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
         return out
     if xs.device.type != "cuda":
         raise ValueError(f"native_lbfgsb_batch: no kernel for {xs.device}")
-    lib = _device_lib(contract)
-    stride = -(-lib.lbfgspp_native_workspace_b(n, params.m, params.past)
-               // 8)
-    ws = torch.empty(batch, stride, dtype=torch.float64, device=xs.device)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.lbfgspp_native_lbfgsb_batch(
-            bid, batch, n, xs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-            ctypes.addressof(_cparams_b(params)), ws.data_ptr(), stride,
-            *(t.data_ptr() for t in out), stream)
-    _launch_check(lib, err, "native_lbfgsb_batch")
+    _launch(_device_lib(contract), True, bid, xs, params, 0, out, lb, ub)
     native_lbfgsb_batch.launches += 1
+    return out
+
+
+def _lanes_batch(fun: str, xs: Tensor, params: LBFGSParams,
+                 line_search: str = "nocedalwright",
+                 contract: bool = False) -> _Out:
+    """The kernel's arithmetic on the host: :func:`native_lbfgs_batch` on a
+    CPU ``xs`` under the ``Lanes`` policy (each reduction as the card's 32
+    strided partials and butterfly), every hardware thread.  Without
+    contraction (the default here) it is the card's ``contract=False``
+    build bit for bit.  For the tests and ``chip_smoke.py``."""
+    _check_rows(xs, "_lanes_batch")
+    batch, n = xs.shape
+    out = _outputs(batch, "cpu")
+    _host(contract).lbfgspp_native_lanes_batch(
+        _builtin_id(fun, n), n, batch, xs.data_ptr(),
+        ctypes.addressof(_cparams(params)), _ls_kind(line_search),
+        *(t.data_ptr() for t in out), -1)
+    return out
+
+
+def _lanes_b_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
+                   params: LBFGSBParams, contract: bool = False) -> _Out:
+    """:func:`_lanes_batch` for :func:`native_lbfgsb_batch`."""
+    _check_rows(xs, "_lanes_b_batch", ("lb", lb), ("ub", ub))
+    batch, n = xs.shape
+    out = _outputs(batch, "cpu")
+    _host(contract).lbfgspp_native_lanes_b_batch(
+        _builtin_id(fun, n), n, batch, xs.data_ptr(), lb.data_ptr(),
+        ub.data_ptr(), ctypes.addressof(_cparams_b(params)),
+        *(t.data_ptr() for t in out), -1)
     return out
 
 
@@ -477,10 +579,13 @@ def _ctypes_minimize(fun, x: Tensor, params: LBFGSParams,
 
 
 def _ctypes_minimize_b(fun, x: Tensor, lb: Tensor, ub: Tensor,
-                       params: LBFGSBParams) -> tuple:
-    return _ctypes_solve(_host().lbfgspp_native_minimize_b, fun, x.numel(),
-                         x.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-                         ctypes.addressof(_cparams_b(params)))
+                       params: LBFGSBParams, lanes: bool = False) -> tuple:
+    """The host's L-BFGS-B solve of ``x`` in place; ``lanes``: under the
+    Lanes policy, built without contraction (the tests' witness)."""
+    fn = _host(False).lbfgspp_native_lanes_minimize_b if lanes \
+        else _host().lbfgspp_native_minimize_b
+    return _ctypes_solve(fn, fun, x.numel(), x.data_ptr(), lb.data_ptr(),
+                         ub.data_ptr(), ctypes.addressof(_cparams_b(params)))
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +664,7 @@ def minimize_batch(fun: str,
     """Multistart batch over a builtin objective: ``x0s [B, n]``, each row
     an independent solve, equal to its :func:`minimize`.
 
-    On the card one launch solves the batch, a thread per instance; on the
+    On the card one launch solves the batch, a warp per instance; on the
     host the solves fan out over ``threads`` OS threads (default: every
     hardware thread) with the interpreter lock released.  Python
     callables are refused (their callbacks would serialize on the lock):
@@ -576,6 +681,7 @@ def minimize_batch(fun: str,
 
 
 __all__ = ["BUILTIN_OBJECTIVES", "LS_KINDS", "NativeResult",
-           "NativeBatchResult", "available", "build_error", "fast_error",
-           "minimize", "minimize_b", "minimize_batch", "native_lbfgs_batch",
-           "native_lbfgsb_batch", "reset_counts", "build"]
+           "NativeBatchResult", "Plan", "available", "build_error",
+           "fast_error", "minimize", "minimize_b", "minimize_batch",
+           "native_lbfgs_batch", "native_lbfgsb_batch", "plan",
+           "reset_counts", "build"]

@@ -1,27 +1,40 @@
 """The native core's CUDA source, built and run on the CPU.
 
-``lbfgspp_tpu_torch/csrc/native/batch.cu`` is compiled with g++ and the host
-build's flags (``cuda_build.HOST_FLAGS``) against a small emulation of the
-CUDA features it uses (``__global__``, ``blockIdx``, ``threadIdx``,
-``blockDim``, the launch, ``cudaGetLastError``): each block's 32 threads
-run at once as host threads, one instance each, on their own rows of one
-workspace buffer.  Both kernels run B = 37 instances (two blocks, the
-second ragged) that mix a converged start, instances that reach
-``max_iterations``, a line-search failure and a huge start, through its C
-launchers as the port's wrappers call them, and are held bit for bit
-against the host build's single solves (``csrc/native/host.cpp``) of the
-same instances: a workspace offset, stride or size slip would show as a
-difference, or in the canaries written into the slack behind each row.  A
-wider box run (n = 64, m = 12, random boxes) reaches the subspace step's
-BOXCQP iterations with many free coordinates, where the workspace's
-derived peak (``native_doubles_b`` in ``lbfgsb.h``) is largest: no solve
-may run out of it (status -1, which no JAX status shares).
+``lbfgspp_tpu_torch/csrc/native/batch.cu`` is compiled with g++, the host
+build's flags (``cuda_build.HOST_FLAGS``) and no multiply-add contraction
+against a small emulation of the CUDA features it uses (``__global__``,
+``blockIdx``, ``threadIdx``, ``blockDim``, the launch, dynamic shared
+memory, the attribute and occupancy calls, ``cudaGetLastError``, and the
+warp's ``__syncwarp``, ``__shfl_xor_sync``, ``__ballot_sync``): each warp is
+32 lanes, ``threadIdx.x % 32`` the lane, run as contexts (``ucontext``) of
+one host thread that hand over to each other at the warp's barrier, so a
+lane passes a ``__syncwarp`` only when all 32 have reached it, and shuffles
+and ballots exchange values through the barrier; a block's warps run in
+turn, the blocks over two host threads, each block on a fresh dynamic
+shared-memory buffer filled with NaN.  (Host threads that spin at a
+barrier, 32 to a warp, took minutes on a machine whose cores were busy
+with other tests; contexts take one core and seconds.)  Both
+kernels run B = 37 instances that mix a converged start, instances that
+reach ``max_iterations``, a line-search failure and a huge start, through
+their C launchers as the port's wrappers call them, and are held bit for bit
+against the host build's ``Lanes`` policy (the warp's reductions as 32
+strided partials and the same butterfly, on one thread per solve) without
+contraction, ``native._lanes_batch``: a workspace offset, stride, size or
+lane slip would show as a difference, or in the canaries written into the
+slack behind each device-memory row and behind each block's shared memory.
+A wider box run (n = 64, m = 12, random boxes) reaches the subspace step's
+BOXCQP iterations with many free coordinates, where the workspace's derived
+peak (``native_doubles_b`` in ``lbfgsb.h``) is largest: no solve may run
+out of it (status -1, which no JAX status shares).  The cases run with the
+workspace in device memory (two warps a block) and in shared memory (three
+warps a block, the last block ragged), at n = 10 (22 of 32 lanes idle) and
+at n = 37 on the builtin quadratic (the last lane group ragged).
 
 What this cannot show: that nvcc accepts the source, or the card's own
-arithmetic (nvcc and g++ each contract multiply-adds in their own places;
-``chip_smoke.py`` phase 26 holds the card's build without contraction bit
-for bit against the host's, and the default builds to tolerances).  The runs go in one subprocess
-with a time limit, so a hang fails the test instead of the test run.
+arithmetic (``chip_smoke.py`` phase 26 and ``tests/test_torch_cuda.py``
+hold the card's build without contraction bit for bit against the same
+``Lanes`` build).  The runs go in one subprocess with a time limit, so a
+hang fails the test instead of the test run.
 """
 
 import json
@@ -46,47 +59,196 @@ PARAMS = LBFGSParams(epsilon=1e-8, max_iterations=40, max_linesearch=3)
 PARAMS_B = LBFGSBParams(max_iterations=15, max_linesearch=3)
 N_WIDE = 64
 PARAMS_WIDE = LBFGSBParams(m=12, max_iterations=40)
+N_RAGGED = 37
+GLOBAL_WARPS, SHARED_WARPS = 2, 3
+# The emulated card: an H100's shared memory (per SM, a block's opt-in
+# limit, reserved a block), at most 32 blocks and 2048 threads an SM.
+SMEM_SM, SMEM_OPTIN, SMEM_RESERVED = 233472, 232448, 1024
+# host threads that take the emulated blocks
+HOST_THREADS = 2
 
 EMULATED_RUNTIME = r'''
 #pragma once
+#include <ucontext.h>
+#include <algorithm>
+#include <atomic>
+#include <cmath>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3 blockIdx, threadIdx;
 inline dim3 blockDim;
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorInvalidConfiguration = 9 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+struct cudaFuncAttributes { int maxThreadsPerBlock; };
+template <class K>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  a->maxThreadsPerBlock = 1024;
+  return cudaSuccess;
+}
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline cudaError_t emu_error = cudaSuccess;
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = emu_error;
+  emu_error = cudaSuccess;
+  return e;
+}
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = SMEM_OPTIN;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
+  return bytes <= SMEM_OPTIN ? cudaSuccess : cudaErrorInvalidValue;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, K, int threads, size_t bytes) {
+  int b = static_cast<int>(SMEM_SM / (bytes + SMEM_RESERVED));
+  if (b > 32) b = 32;
+  if (b > 2048 / threads) b = 2048 / threads;
+  *blocks = b;
+  return cudaSuccess;
+}
 
-// Blocks in turn; the threads of a block at once.
+// A warp's 32 lanes are contexts (ucontext) on one host thread, run in
+// turn: a lane runs until it reaches the warp's barrier, then hands over
+// to the next lane, so when lane 0 resumes past a barrier every lane has
+// arrived at it.  Shuffles and ballots leave a value in the lane's slot
+// before the barrier and read the partners' after it, from two banks used
+// in turn (a lane writes a bank again only after every lane has passed the
+// barrier that follows the reads of it).
+struct EmuWarp {
+  ucontext_t lane[32];
+  ucontext_t back;
+  int finished = 0;
+  int bank[32] = {};
+  double slot[2][32];
+  int flag[2][32];
+};
+inline thread_local EmuWarp* emu_warp;
+inline thread_local int emu_lane_id, emu_warp_id;
+inline thread_local void* emu_kernel;
+inline int emu_lane() { return emu_lane_id; }
+inline void emu_switch(int next) {
+  const int prev = emu_lane_id;
+  emu_lane_id = next;
+  threadIdx.x = static_cast<unsigned>(emu_warp_id * 32 + next);
+  swapcontext(&emu_warp->lane[prev], &emu_warp->lane[next]);
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_switch((emu_lane_id + 1) % 32);
+}
+inline double __shfl_xor_sync(unsigned, double v, int off) {
+  const int bank = emu_warp->bank[emu_lane_id] ^= 1;
+  emu_warp->slot[bank][emu_lane_id] = v;
+  __syncwarp();
+  return emu_warp->slot[bank][emu_lane_id ^ off];
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int bank = emu_warp->bank[emu_lane_id] ^= 1;
+  emu_warp->flag[bank][emu_lane_id] = p != 0;
+  __syncwarp();
+  unsigned mask = 0;
+  for (int l = 0; l < 32; ++l)
+    if (emu_warp->flag[bank][l]) mask |= 1u << l;
+  return mask;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
+// A lane: the kernel, then the next lane (every lane of a warp leaves the
+// kernel at the same barrier), the last back to the launcher.
 template <class F>
-void emu_launch(long long grid, int threads, int, cudaStream_t, F fn) {
-  blockDim.x = threads;
-  for (long long b = 0; b < grid; ++b) {
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, b, t] {
-        blockIdx.x = static_cast<unsigned>(b);
-        threadIdx.x = t;
-        fn();
-      });
-    for (auto& th : ts) th.join();
+void emu_lane_main() {
+  (*static_cast<F*>(emu_kernel))();
+  EmuWarp* w = emu_warp;
+  if (++w->finished == 32) {
+    swapcontext(&w->lane[emu_lane_id], &w->back);
+  } else {
+    emu_switch((emu_lane_id + 1) % 32);
   }
 }
+
+// The block's dynamic shared memory, NaN-filled, with canaries behind it.
+inline thread_local std::vector<double> emu_smem;
+inline std::atomic<long long> emu_canary_faults{0};
+
+// The blocks over a few host threads, each block's warps in turn.  A block
+// of more than 1024 threads is refused, as the card refuses it.
+template <class F>
+void emu_launch(long long grid, int threads, long long smem, cudaStream_t,
+                F fn) {
+  if (threads < 1 || threads > 1024 || threads % 32) {
+    emu_error = cudaErrorInvalidConfiguration;
+    return;
+  }
+  blockDim.x = threads;
+  const long long words = smem / 8;
+  std::atomic<long long> next{0};
+  auto work = [&] {
+    std::vector<std::vector<char>> stacks(32, std::vector<char>(1 << 19));
+    emu_kernel = &fn;
+    for (long long b; (b = next++) < grid;) {
+      emu_smem.assign(words + SLACK, std::nan(""));
+      blockIdx.x = static_cast<unsigned>(b);
+      for (int w = 0; w < threads / 32; ++w) {
+        EmuWarp warp;
+        emu_warp = &warp;
+        emu_warp_id = w;
+        for (int l = 0; l < 32; ++l) {
+          getcontext(&warp.lane[l]);
+          warp.lane[l].uc_stack.ss_sp = stacks[l].data();
+          warp.lane[l].uc_stack.ss_size = stacks[l].size();
+          warp.lane[l].uc_link = nullptr;
+          makecontext(&warp.lane[l], &emu_lane_main<F>, 0);
+        }
+        emu_lane_id = 0;
+        threadIdx.x = static_cast<unsigned>(w * 32);
+        swapcontext(&warp.back, &warp.lane[0]);
+      }
+      for (long long i = words; i < words + SLACK; ++i)
+        if (!std::isnan(emu_smem[i])) ++emu_canary_faults;
+    }
+  };
+  const long long pool = std::min<long long>(grid, EMU_HOST_THREADS);
+  std::vector<std::thread> ts;
+  for (long long t = 1; t < pool; ++t) ts.emplace_back(work);
+  work();
+  for (auto& th : ts) th.join();
+}
+
+extern "C" long long emu_canary_fault_count() { return emu_canary_faults; }
 '''
 
 
 def emulated_source(src: str) -> str:
-    """batch.cu with its launches turned into calls of the emulation."""
+    """batch.cu with its launches turned into calls of the emulation, and
+    its dynamic shared memory into the emulation's buffer."""
     src = re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);",
                  r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    if "<<<" in src:
-        raise AssertionError("unconverted launch in batch.cu")
+    src, k = re.subn(r"extern __shared__ double (\w+)\[\];",
+                     r"double* \1 = emu_smem.data();", src)
+    if "<<<" in src or k != 1:
+        raise AssertionError("unconverted launch or shared memory in "
+                             "batch.cu")
     return src
+
+
+def runtime() -> str:
+    consts = (f"constexpr long long SMEM_SM = {SMEM_SM}, SMEM_OPTIN = "
+              f"{SMEM_OPTIN}, SMEM_RESERVED = {SMEM_RESERVED}, SLACK = "
+              f"{SLACK}, EMU_HOST_THREADS = {HOST_THREADS};\n")
+    head, body = EMULATED_RUNTIME.split("#define __global__", 1)
+    return head + consts + "#define __global__" + body
 
 
 def cases():
@@ -115,53 +277,104 @@ def wide_cases():
     return np.clip(rng.uniform(-2, 2, (BATCH, N_WIDE)), lb, ub), lb, ub
 
 
-def _rows(stride, fill=np.nan):
-    """A workspace [BATCH, stride + SLACK] filled with ``fill``."""
-    return torch.full((BATCH, stride + SLACK), fill, dtype=torch.float64)
+def ragged_cases():
+    """The builtin quadratic at n = 37 (optimum 0, 1, ..., 36): starts and
+    boxes that cut the optimum, [BATCH, N_RAGGED]."""
+    rng = np.random.default_rng(7)
+    x0 = rng.uniform(-5, 40, (BATCH, N_RAGGED))
+    lb = rng.uniform(-5, 30, (BATCH, N_RAGGED))
+    ub = lb + rng.uniform(0.5, 10, (BATCH, N_RAGGED))
+    return x0, np.clip(x0, lb, ub), lb, ub
+
+
+# label -> (box, objective, placement): the rows of each run come from
+# _inputs(label)
+RUNS = {
+    **{ls: (False, "rosenbrock", "global") for ls in native.LS_KINDS},
+    "box": (True, "rosenbrock", "global"),
+    "box_wide": (True, "rosenbrock", "global"),
+    "shared_morethuente": (False, "rosenbrock", "shared"),
+    "shared_box": (True, "rosenbrock", "shared"),
+    "ragged_quadratic": (False, "quadratic", "shared"),
+    "ragged_box_quadratic": (True, "quadratic", "global"),
+}
+
+
+def _inputs(label):
+    """(x0, lb, ub, params, line search) of a run; lb, ub None for L-BFGS."""
+    x0, xb, lb, ub = cases()
+    if label == "box_wide":
+        return (*wide_cases(), PARAMS_WIDE, None)
+    if label in ("box", "shared_box"):
+        return xb, lb, ub, PARAMS_B, None
+    if label == "ragged_quadratic":
+        return ragged_cases()[0], None, None, PARAMS, "nocedalwright"
+    if label == "ragged_box_quadratic":
+        return (*ragged_cases()[1:], PARAMS_B, None)
+    ls = label.replace("shared_", "")
+    return x0, None, None, PARAMS, ls
 
 
 def _main(lib_path):
-    """Run both emulated kernels; print one JSON line of their outputs."""
+    """Run every emulated launch; print one JSON line of their outputs."""
     import ctypes
     lib = ctypes.CDLL(lib_path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lbfgspp_native_lbfgs_batch.argtypes = [
-        i, ll, i, p, p, i, p, ll, p, p, p, p, p, p]
+        i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p]
     lib.lbfgspp_native_lbfgsb_batch.argtypes = [
-        i, ll, i, p, p, p, p, p, ll, p, p, p, p, p, p]
+        i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p]
+    lib.lbfgspp_native_plan.argtypes = [i, i, i, i, p, p, p]
+    lib.emu_canary_fault_count.restype = ll
     for fn in (lib.lbfgspp_native_workspace, lib.lbfgspp_native_workspace_b):
         fn.argtypes = [i] * 3
         fn.restype = ll
-    x0, xb, lb, ub = cases()
     out = {}
-
-    def run(label, launch, x, stride):
-        x = torch.tensor(x)
-        ws = _rows(stride)
+    for label, (box, fun, placement) in RUNS.items():
+        x0, lb, ub, prm, ls = _inputs(label)
+        n = x0.shape[1]
+        x = torch.tensor(x0)
+        size = (lib.lbfgspp_native_workspace_b if box
+                else lib.lbfgspp_native_workspace)(n, prm.m, prm.past)
+        stride = -(-size // 8)
+        ws = torch.full((BATCH, stride + SLACK), np.nan, dtype=torch.float64)
+        wsp, st, warps = ws.data_ptr(), stride + SLACK, GLOBAL_WARPS
+        if placement == "shared":
+            wsp, st, warps = None, 0, SHARED_WARPS
         outs = native._outputs(BATCH, "cpu")
-        err = launch(x.data_ptr(), ws.data_ptr(), stride + SLACK,
-                     *(t.data_ptr() for t in outs))
-        out[label] = {"err": err, "x": x.tolist(),
-                      "canaries": bool(ws[:, stride:].isnan().all()),
-                      **{k: v.tolist() for k, v in outs._asdict().items()}}
-
-    stride = -(-lib.lbfgspp_native_workspace(N, PARAMS.m, PARAMS.past) // 8)
-    for ls, kind in native.LS_KINDS.items():
-        run(ls, lambda x, ws, st, *o, kind=kind:
-            lib.lbfgspp_native_lbfgs_batch(
-                0, BATCH, N, x, ctypes.addressof(native._cparams(PARAMS)),
-                kind, ws, st, *o, None), x0, stride)
-    for label, x, lo, hi, n, pb in (("box", xb, lb, ub, N, PARAMS_B),
-                                    ("box_wide", *wide_cases(), N_WIDE,
-                                     PARAMS_WIDE)):
-        stride = -(-lib.lbfgspp_native_workspace_b(n, pb.m, pb.past) // 8)
-        lbt, ubt = torch.tensor(lo), torch.tensor(hi)
-        run(label, lambda x, ws, st, *o, n=n, pb=pb, lbt=lbt, ubt=ubt:
-            lib.lbfgspp_native_lbfgsb_batch(
-                0, BATCH, n, x, lbt.data_ptr(), ubt.data_ptr(),
-                ctypes.addressof(native._cparams_b(pb)), ws, st, *o, None),
-            x, stride)
-    print(json.dumps(out))
+        faults = lib.emu_canary_fault_count()
+        bid = native.BUILTIN_OBJECTIVES[fun]
+        if box:
+            lbt, ubt = torch.tensor(lb), torch.tensor(ub)
+            err = lib.lbfgspp_native_lbfgsb_batch(
+                bid, BATCH, n, x.data_ptr(), lbt.data_ptr(), ubt.data_ptr(),
+                ctypes.addressof(native._cparams_b(prm)), wsp, st, warps,
+                *(t.data_ptr() for t in outs), None)
+        else:
+            err = lib.lbfgspp_native_lbfgs_batch(
+                bid, BATCH, n, x.data_ptr(),
+                ctypes.addressof(native._cparams(prm)), native.LS_KINDS[ls],
+                wsp, st, warps, *(t.data_ptr() for t in outs), None)
+        out[label] = {
+            "err": err, "x": x.tolist(),
+            "canaries": bool(ws[:, stride:].isnan().all()) and
+            lib.emu_canary_fault_count() == faults,
+            **{k: v.tolist() for k, v in outs._asdict().items()}}
+    # the plan at the multistart's, the box recipe's and a large shape,
+    # and a launch whose block does not fit the shared-memory limit
+    plans = {}
+    for box, n in ((0, 100), (1, 10), (0, 4096)):
+        vals = (ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
+        err = lib.lbfgspp_native_plan(box, n, 6, 1,
+                                      *(ctypes.byref(v) for v in vals))
+        plans[f"{box},{n}"] = [err, *(v.value for v in vals)]
+    x = torch.tensor(cases()[0])
+    outs = native._outputs(BATCH, "cpu")
+    too_big = lib.lbfgspp_native_lbfgs_batch(
+        0, BATCH, N, x.data_ptr(), ctypes.addressof(native._cparams(PARAMS)),
+        2, None, 0, 64, *(t.data_ptr() for t in outs), None)
+    print(json.dumps({"runs": out, "plans": plans, "too_big": too_big,
+                      "untouched": bool(x.equal(torch.tensor(cases()[0])))}))
 
 
 @pytest.fixture(scope="module")
@@ -171,59 +384,90 @@ def emulated(tmp_path_factory):
     build = str(tmp_path_factory.mktemp("native_emulated"))
     with open(os.path.join(NATIVE, "batch.cu")) as f:
         source = emulated_source(f.read())
-    for name, text in (("cuda_runtime.h", EMULATED_RUNTIME),
+    for name, text in (("cuda_runtime.h", runtime()),
                        ("batch_emulated.cpp", source)):
         with open(os.path.join(build, name), "w") as f:
             f.write(text)
     lib_path = os.path.join(build, "libnative_emulated.so")
     proc = subprocess.run(
-        ["g++", *cuda_build.HOST_FLAGS, "-pthread", "-I", build, "-I",
-         NATIVE, os.path.join(build, "batch_emulated.cpp"), "-o", lib_path],
+        ["g++", *cuda_build.HOST_FLAGS, *native._NO_CONTRACT["cpu"],
+         "-pthread", "-I", build, "-I", NATIVE,
+         os.path.join(build, "batch_emulated.cpp"), "-o", lib_path],
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     code = (f"import sys; sys.path[:0] = [{os.path.dirname(__file__)!r}, "
             f"{REPO!r}]; import test_torch_native_emulated as t; "
             f"t._main({lib_path!r})")
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300, cwd=REPO)
+                         text=True, timeout=600, cwd=REPO)
     assert run.returncode == 0, run.stderr[-4000:]
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def _host_singles(label):
-    """The host build's single solves of the run's instances (x, fx, gnorm,
-    niter, nfev, status)."""
-    x0, xb, lb, ub = cases()
-    rows = []
-    for b in range(BATCH):
-        if label == "box_wide":
-            xw, lw, uw = wide_cases()
-            r = native.minimize_b("rosenbrock", xw[b], lw[b], uw[b],
-                                  PARAMS_WIDE, device="cpu")
-        elif label == "box":
-            r = native.minimize_b("rosenbrock", xb[b], lb[b], ub[b],
-                                  PARAMS_B, device="cpu")
-        else:
-            r = native.minimize("rosenbrock", x0[b], PARAMS, label,
-                                device="cpu")
-        rows.append(r)
-    return rows
+def _lanes(label):
+    """The Lanes host build's batch of the run's instances, without
+    contraction (x, then fx, gnorm, niter, nfev, status)."""
+    box, fun, _ = RUNS[label]
+    x0, lb, ub, prm, ls = _inputs(label)
+    x = torch.tensor(x0)
+    if box:
+        out = native._lanes_b_batch(fun, x, torch.tensor(lb),
+                                    torch.tensor(ub), prm)
+    else:
+        out = native._lanes_batch(fun, x, prm, ls)
+    return x, out
 
 
-@pytest.mark.parametrize("label", [*native.LS_KINDS, "box", "box_wide"])
+@pytest.mark.parametrize("label", list(RUNS))
 def test_emulated_kernel_equals_host_singles(emulated, label):
-    got = emulated[label]
+    """Each run against the host's Lanes build of the same instances (every
+    instance of its threaded batch equals its single solve)."""
+    got = emulated["runs"][label]
     assert got["err"] == 0 and got["canaries"]
     statuses = set(got["status"])
     assert -1 not in statuses, "a solve ran out of its workspace"
-    want = _host_singles(label)
-    for b, r in enumerate(want):
-        assert np.array_equal(np.asarray(got["x"][b]), r.x.numpy()), b
-        for k in ("fx", "gnorm", "niter", "nfev", "status"):
-            assert got[k][b] == getattr(r, k).item(), (b, k)
-    if label == "box_wide":
+    x, want = _lanes(label)
+    assert np.array_equal(np.asarray(got["x"]), x.numpy())
+    for k in ("fx", "gnorm", "niter", "nfev", "status"):
+        assert np.array_equal(np.asarray(got[k]), getattr(want, k).numpy()), k
+    if label in ("box_wide",) or label.startswith("ragged"):
         return
     # the mix the run is for: a converged start, the cap, a failure
     assert {1, 3} <= statuses, statuses
-    if label != "box":
+    if "box" not in label:
         assert statuses - {1, 2, 3}, statuses
+
+
+def _expected_plan(box, n):
+    """The plan by hand on the emulated card: the warps a block (1-8) that
+    keep the most warps on an SM, the fewest on a tie, in shared memory
+    when one warp's slice fits the block's limit."""
+    host = native._host()
+    size = (host.lbfgspp_native_workspace_b if box
+            else host.lbfgspp_native_workspace)(n, 6, 1)
+    per_warp = 8 * (n + -(-size // 8))
+    shared = per_warp <= SMEM_OPTIN
+    best = (0, 0, 0)
+    for w in range(1, 9):
+        nbytes = w * per_warp if shared else 0
+        if nbytes > SMEM_OPTIN:
+            break
+        blocks = min(32, 2048 // (32 * w), SMEM_SM // (nbytes + SMEM_RESERVED))
+        if blocks * w > best[0] * best[1]:
+            best = (w, blocks, nbytes)
+    return [0, *best]
+
+
+def test_emulated_plan_and_refused_launch(emulated):
+    """The plan on the emulated H100's shared memory (registers aside), as
+    worked by hand: n = 100, m = 6 in shared memory, one warp a block and
+    13 blocks an SM; n = 10's box solve in shared memory; n = 4096 in
+    device memory (a warp's workspace passes the block's limit).  A block
+    of 64 warps (2048 threads) is refused, leaving x as it was."""
+    plans = emulated["plans"]
+    for key, want in plans.items():
+        box, n = map(int, key.split(","))
+        assert want == _expected_plan(box, n), key
+    assert plans["0,100"][1:3] == [1, 13] and plans["0,100"][3] > 0
+    assert plans["1,10"][3] > 0 and plans["0,4096"][3] == 0
+    assert emulated["too_big"] != 0 and emulated["untouched"]
