@@ -14,6 +14,12 @@
 //   native_lbfgsb_batch: L-BFGS-B with More-Thuente and per-instance
 //     bounds lb, ub [B, n].
 //
+// native_lbfgs_batch is a template over the policy: Warp, the default, and
+// ProbedWarp, the probed kernel, whose lane 0 clocks each solve's phases
+// (core.h's X::mark) and writes one record per instance into probe [B, 6]
+// (lbfgspp_native_lbfgs_batch_probed).  Every hook of Warp is empty, so the
+// default kernel is the code it was without them.
+//
 // x [B, n] f64 is solved in place; the outputs fx, gnorm (projected for the
 // box solve), niter, nfev and status are [B], written by lane 0.  A block
 // holds W warps, instance b on warp b % W of block b / W.  Its workspace:
@@ -122,6 +128,104 @@ struct Warp {
   }
   __device__ static __forceinline__ void sync() { __syncwarp(); }
   __device__ static __forceinline__ bool leader() { return lane() == 0; }
+  // The probe's hooks (ProbedWarp's, below): nothing here.
+  __device__ static __forceinline__ void mark(ln::Boundary) {}
+  __device__ static __forceinline__ void begin() {}
+  __device__ static __forceinline__ void end(long long) {}
+  template <class F>
+  using Objective = F;
+};
+
+// The card's wall clock, in nanoseconds.
+__device__ __forceinline__ long long globaltimer_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A probe record, per instance: start_ns, end_ns (%globaltimer at the
+// warp's entry into its slot and after its outputs are written), then the
+// SM cycles (clock64) of the whole slot, of the objective's evaluations,
+// of the line searches without their evaluations, and of the new
+// directions.
+constexpr int kProbeFields = 6;
+// Lane 0's running state, a row per warp of the block (as many as the
+// launch bounds allow; a probed launch of more warps is refused): [0]
+// clock64 at the last search's or direction's begin (kNever before the
+// first), [1] at the last evaluation's begin, [2] clock64 and [3]
+// %globaltimer at the entry, [4, 5, 6] the cycles of eval, search and
+// direction so far.
+constexpr int kProbeWarps = kBoundThreads / ln::kWarp;
+constexpr long long kNever = 0x7fffffffffffffffLL;
+__shared__ long long probe_state[kProbeWarps][7];
+
+// The probed kernel's policy: Warp, with lane 0 clocking the phases (the
+// warp runs the solve's scalar chain in lockstep, so lane 0's clock is the
+// warp's).  Each mark is static (its boundary is a constant where it is
+// inlined) and taken by lane 0 alone: a clock read, at most one round of
+// independent shared-memory loads, and its stores.  Branching the other
+// lanes around it cost less than predicating their stores off (0.6-1.0%
+// of the kernel's time against 1.6-2.4%, on the H100 at the multistart's
+// shape), and the state lives in shared memory, not in registers, so the
+// solve keeps its registers.
+struct ProbedWarp : Warp {
+  __device__ static __forceinline__ long long* state() {
+    return probe_state[threadIdx.x / ln::kWarp];
+  }
+  __device__ static __forceinline__ void begin() {
+    if (lane() != 0) return;
+    long long* s = state();
+    s[2] = clock64();
+    s[3] = globaltimer_ns();
+    s[0] = kNever;
+    s[4] = s[5] = s[6] = 0;
+  }
+  __device__ static __forceinline__ void mark(ln::Boundary m) {
+    if (lane() != 0) return;
+    long long* s = state();
+    const long long now = clock64();
+    switch (m) {
+      case ln::kSearchBegin:
+      case ln::kDirectionBegin: s[0] = now; break;
+      case ln::kEvalBegin: s[1] = now; break;
+      case ln::kSearchEnd: s[5] += now - s[0]; break;
+      case ln::kDirectionEnd: s[6] += now - s[0]; break;
+      case ln::kEvalEnd: {
+        const long long d = now - s[1];
+        s[4] += d;
+        // An evaluation that began after the last search's begin is that
+        // search's (the first evaluation precedes every search, and none
+        // falls in a direction): the search's cycles leave it out.
+        if (s[1] > s[0]) s[5] -= d;
+        break;
+      }
+    }
+  }
+  __device__ static __forceinline__ void end(long long b, long long* probe) {
+    if (lane() != 0) return;
+    const long long* s = state();
+    long long* r = probe + b * kProbeFields;
+    const long long now = clock64();
+    r[1] = globaltimer_ns();
+    r[0] = s[3];
+    r[2] = now - s[2];
+    r[3] = s[4];
+    r[4] = s[5];
+    r[5] = s[6];
+  }
+  // The objective, each call marked as an evaluation.
+  template <class F>
+  struct Objective {
+    F f;
+    template <class X>
+    __device__ double operator()(X, const double* x, double* grad,
+                                 int n) const {
+      mark(ln::kEvalBegin);
+      const double fx = f(X{}, x, grad, n);
+      mark(ln::kEvalEnd);
+      return fx;
+    }
+  };
 };
 
 // A warp's doubles in shared memory: x [n], then its workspace.
@@ -159,21 +263,27 @@ __device__ void finish(const Slot& s, int n, double* xs, bool shared,
   if (Warp::leader()) status[s.b] = st;
 }
 
+// W = Warp, or ProbedWarp with Probe = long long* (the records).
+template <class W, class... Probe>
 __global__ void __launch_bounds__(kBoundThreads, LBFGSPP_LBFGS_MIN_BLOCKS)
     native_lbfgs_batch(int builtin_id, long long batch, int n, double* xs,
                        ln::Params p, int ls_kind, double* ws,
                        long long stride, double* fx, double* gnorm,
-                       int* niter, int* nfev, int* status) {
+                       int* niter, int* nfev, int* status, Probe... probe) {
+  W::begin();
   const Slot s = slot(batch, n, xs, ws, stride);
   if (s.x == nullptr) return;
   const long long b = s.b;
   const int st =
       builtin_id == 0
-          ? ln::minimize<Warp>(ln::Rosenbrock{}, n, s.x, p, ls_kind, s.ws,
-                               fx + b, gnorm + b, niter + b, nfev + b)
-          : ln::minimize<Warp>(ln::Quadratic{}, n, s.x, p, ls_kind, s.ws,
-                               fx + b, gnorm + b, niter + b, nfev + b);
+          ? ln::minimize<W>(typename W::template Objective<ln::Rosenbrock>{},
+                            n, s.x, p, ls_kind, s.ws, fx + b, gnorm + b,
+                            niter + b, nfev + b)
+          : ln::minimize<W>(typename W::template Objective<ln::Quadratic>{},
+                            n, s.x, p, ls_kind, s.ws, fx + b, gnorm + b,
+                            niter + b, nfev + b);
   finish(s, n, xs, ws == nullptr, st, status);
+  W::end(b, probe...);
 }
 
 __global__ void __launch_bounds__(kBoundThreads, LBFGSPP_LBFGSB_MIN_BLOCKS)
@@ -258,6 +368,29 @@ cudaError_t shared_launch_bytes(K kernel, long long ws_bytes, int n,
   return allow_shared(kernel, *bytes);
 }
 
+// Launch native_lbfgs_batch<W, Probe...> (lbfgspp_native_lbfgs_batch).
+template <class W, class... Probe>
+int launch_lbfgs(int builtin_id, long long batch, int n, double* xs,
+                 const ln::Params* p, int ls_kind, double* ws,
+                 long long stride, int warps, double* fx, double* gnorm,
+                 int* niter, int* nfev, int* status, cudaStream_t stream,
+                 Probe... probe) {
+  if (batch <= 0) return 0;
+  if (warps < 1 || (sizeof...(Probe) > 0 && warps > kProbeWarps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = native_lbfgs_batch<W, Probe...>;
+  long long bytes = 0;
+  if (ws == nullptr) {
+    const cudaError_t err = shared_launch_bytes(
+        kernel, ln::native_workspace(n, p->m, p->past), n, warps, &bytes,
+        &stride);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long grid = (batch + warps - 1) / warps;
+  kernel<<<static_cast<unsigned>(grid), warps * ln::kWarp, static_cast<size_t>(bytes), stream>>>(builtin_id, batch, n, xs, *p, ls_kind, ws, stride, fx, gnorm, niter, nfev, status, probe...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -274,17 +407,25 @@ const char* lbfgspp_native_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The launch plan of native_lbfgs_batch (box = 0) or native_lbfgsb_batch
-// (box = 1) at (n, m, past) on the current device: warps per block, blocks
-// resident per SM, and the block's dynamic shared memory (0: the workspace
-// is a row of device memory).  Returns a cudaError_t.
-int lbfgspp_native_plan(int box, int n, int m, int past, int* warps,
+// The launch plan of native_lbfgs_batch (kernel = 0), native_lbfgsb_batch
+// (1) or the probed native_lbfgs_batch (2) at (n, m, past) on the current
+// device: warps per block, blocks resident per SM, and the block's dynamic
+// shared memory (0: the workspace is a row of device memory).  Returns a
+// cudaError_t.
+int lbfgspp_native_plan(int kernel, int n, int m, int past, int* warps,
                         int* blocks_per_sm, long long* shared_bytes) {
-  return static_cast<int>(
-      box ? plan(native_lbfgsb_batch, ln::native_workspace_b(n, m, past), n,
-                 warps, blocks_per_sm, shared_bytes)
-          : plan(native_lbfgs_batch, ln::native_workspace(n, m, past), n,
-                 warps, blocks_per_sm, shared_bytes));
+  const long long ws = ln::native_workspace(n, m, past);
+  switch (kernel) {
+    case 0: return static_cast<int>(plan(native_lbfgs_batch<Warp>, ws, n,
+                                         warps, blocks_per_sm, shared_bytes));
+    case 1: return static_cast<int>(
+        plan(native_lbfgsb_batch, ln::native_workspace_b(n, m, past), n,
+             warps, blocks_per_sm, shared_bytes));
+    case 2: return static_cast<int>(
+        plan(native_lbfgs_batch<ProbedWarp, long long*>, ws, n, warps,
+             blocks_per_sm, shared_bytes));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Launch native_lbfgs_batch on `stream`, `warps` instances a block, the
@@ -295,18 +436,22 @@ int lbfgspp_native_lbfgs_batch(int builtin_id, long long batch, int n,
                                double* ws, long long stride, int warps,
                                double* fx, double* gnorm, int* niter,
                                int* nfev, int* status, cudaStream_t stream) {
-  if (batch <= 0) return 0;
-  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  long long bytes = 0;
-  if (ws == nullptr) {
-    const cudaError_t err = shared_launch_bytes(
-        native_lbfgs_batch, ln::native_workspace(n, p->m, p->past), n, warps,
-        &bytes, &stride);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long grid = (batch + warps - 1) / warps;
-  native_lbfgs_batch<<<static_cast<unsigned>(grid), warps * ln::kWarp, static_cast<size_t>(bytes), stream>>>(builtin_id, batch, n, xs, *p, ls_kind, ws, stride, fx, gnorm, niter, nfev, status);
-  return static_cast<int>(cudaGetLastError());
+  return launch_lbfgs<Warp>(builtin_id, batch, n, xs, p, ls_kind, ws, stride,
+                            warps, fx, gnorm, niter, nfev, status, stream);
+}
+
+// The same launch of the probed kernel (plan 2), which writes instance b's
+// record to probe[6 b .. 6 b + 5] (kProbeFields).
+int lbfgspp_native_lbfgs_batch_probed(int builtin_id, long long batch, int n,
+                                      double* xs, const ln::Params* p,
+                                      int ls_kind, double* ws,
+                                      long long stride, int warps, double* fx,
+                                      double* gnorm, int* niter, int* nfev,
+                                      int* status, cudaStream_t stream,
+                                      long long* probe) {
+  return launch_lbfgs<ProbedWarp>(builtin_id, batch, n, xs, p, ls_kind, ws,
+                                  stride, warps, fx, gnorm, niter, nfev,
+                                  status, stream, probe);
 }
 
 // Launch native_lbfgsb_batch likewise.

@@ -45,7 +45,12 @@
 //   X::put(p, v)              a store of scalar code: lane 0 writes;
 //   X::sync()                 every lane then sees every store before it;
 //   X::leader()               whether this lane runs a section that only
-//                             one lane may run (an in-place sort or LU).
+//                             one lane may run (an in-place sort or LU);
+//   X::mark(m)                the solve passes the phase boundary m
+//                             (Boundary, below): a hook for a policy that
+//                             times the phases (batch.cu's ProbedWarp);
+//                             empty in the others, so their code is as
+//                             without it.
 // Serial is a loop: each and reduce in index order (the reference's sums),
 // put a store.  Warp gives lane l the indices i = l (mod 32): a reduction
 // folds the lane's terms in index order, then a xor butterfly over offsets
@@ -126,6 +131,14 @@ LBFGSPP_HD inline T dmin(T a, T b) { return (b < a) ? b : a; }
 template <class T>
 LBFGSPP_HD inline T dmax(T a, T b) { return (a < b) ? b : a; }
 
+// The phase boundaries of an L-BFGS solve that X::mark names: the line
+// search's, the new direction's (the s/y pair, the curvature test, the
+// history's update and its two-loop product), and an objective
+// evaluation's, which minimize does not mark itself: a policy that times
+// them wraps the functor.
+enum Boundary { kSearchBegin, kSearchEnd, kDirectionBegin, kDirectionEnd,
+                kEvalBegin, kEvalEnd };
+
 // The host policies (the card's, Warp, is in batch.cu).
 struct Serial {
   template <class Fn>
@@ -157,6 +170,7 @@ struct Serial {
   LBFGSPP_HD static LBFGSPP_INLINE void put(T* p, T v) { *p = v; }
   LBFGSPP_HD static LBFGSPP_INLINE void sync() {}
   LBFGSPP_HD static LBFGSPP_INLINE bool leader() { return true; }
+  LBFGSPP_HD static LBFGSPP_INLINE void mark(Boundary) {}
 };
 
 struct Add {
@@ -817,8 +831,10 @@ LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
       copy2<X>(xp, x, gradp, grad, n);
       double dg = dot<X>(grad, drt, n);
 
+      X::mark(kSearchBegin);
       LsResult ls = run_linesearch<X>(ls_kind, f, ar, p, xp, drt,
                                       p.max_step, step, fx, x, grad, dg, n);
+      X::mark(kSearchEnd);
       nfev += ls.nfev;
       fx = ls.fx;
       gnorm = nrm2<X>(grad, n);
@@ -846,6 +862,7 @@ LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
         break;
       }
 
+      X::mark(kDirectionBegin);
       X::each(n, [&](int i) {
         vs[i] = x[i] - xp[i];
         vy[i] = grad[i] - gradp[i];
@@ -854,6 +871,7 @@ LBFGSPP_HD int minimize(const F& f, int n, double* x, const Params& p,
         hist.add(vs, vy);
 
       hist.apply_hv(grad, -1.0, drt);
+      X::mark(kDirectionEnd);
       step = 1.0;
       ++k;
     }

@@ -41,6 +41,16 @@ call                                       ``device="cuda"`` (default)  ``device
 ``minimize`` / ``minimize_b``, a callable  ``ValueError``               the host build (ctypes)
 =========================================  ==========================  =============================
 
+While a ``torch.profiler`` records (or inside :func:`probing`), a card
+launch of ``native_lbfgs_batch`` takes the probed build of the kernel:
+the same solve, whose lane 0 also clocks each instance's phases (the
+objective's evaluations, the line search without them, the new
+direction, and the whole slot in SM cycles and ``%globaltimer``
+nanoseconds).  Each such launch leaves one summary, read by
+:func:`probe_records`.  The card path of :func:`native_lbfgs_batch` and
+:func:`minimize_batch`, from the call to the C launch's return, is the
+profiler span ``lbfgspp.native.launch``.
+
 A Python callable ``f(x) -> (fx, grad)`` gets an f64 CPU tensor; it needs
 ``device="cpu"`` (for an objective that runs on the card, use
 :func:`lbfgspp_tpu_torch.minimize`).  Results are f64 tensors (counts
@@ -51,10 +61,12 @@ build raises with the compiler's output, and nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import importlib.util
 import sysconfig
+import time
 from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
@@ -220,6 +232,9 @@ def _typed_device(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lbfgspp_native_lbfgs_batch.argtypes = [
             i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p]
         lib.lbfgspp_native_lbfgs_batch.restype = i
+        lib.lbfgspp_native_lbfgs_batch_probed.argtypes = [
+            i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p, p]
+        lib.lbfgspp_native_lbfgs_batch_probed.restype = i
         lib.lbfgspp_native_lbfgsb_batch.argtypes = [
             i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p]
         lib.lbfgspp_native_lbfgsb_batch.restype = i
@@ -369,38 +384,44 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(lib: ctypes.CDLL, box: bool, n: int, m: int, past: int,
+def _plan(lib: ctypes.CDLL, kernel: int, n: int, m: int, past: int,
           device: int) -> Plan:
     vals = (ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
     with torch.cuda.device(device):
-        err = lib.lbfgspp_native_plan(int(box), n, m, past,
+        err = lib.lbfgspp_native_plan(kernel, n, m, past,
                                       *(ctypes.byref(v) for v in vals))
     _launch_check(lib, err, "the native kernels' plan")
     return Plan(*(v.value for v in vals))
 
 
 def plan(box: bool, n: int, params, device="cuda",
-         lib: Optional[ctypes.CDLL] = None) -> Plan:
+         lib: Optional[ctypes.CDLL] = None, probed: bool = False) -> Plan:
     """How the card runs ``native_lbfgsb_batch`` (``box``) or
-    ``native_lbfgs_batch`` at ``n`` and ``params`` (its ``m`` and
-    ``past``): warps per block, blocks resident per SM and the block's
-    shared memory (0 when the workspace is in device memory).  ``lib``: a
-    build of its own (``tools/native_study.py``'s register caps)."""
+    ``native_lbfgs_batch`` (``probed``: its probed build, planned on its
+    own) at ``n`` and ``params`` (its ``m`` and ``past``): warps per
+    block, blocks resident per SM and the block's shared memory (0 when
+    the workspace is in device memory).  ``lib``: a build of its own
+    (``tools/native_study.py``'s register caps)."""
+    if box and probed:
+        raise ValueError("native_lbfgsb_batch has no probed build")
     dev = torch.device(device)
-    return _plan(lib or _device_lib(), bool(box), n, params.m, params.past,
+    return _plan(lib or _device_lib(), 1 if box else 2 if probed else 0, n,
+                 params.m, params.past,
                  torch.cuda.current_device() if dev.index is None
                  else dev.index)
 
 
 def _launch(lib: ctypes.CDLL, box: bool, bid: int, xs: Tensor, params,
             ls: int, out: _Out, lb: Optional[Tensor] = None,
-            ub: Optional[Tensor] = None,
-            warps: Optional[int] = None) -> None:
+            ub: Optional[Tensor] = None, warps: Optional[int] = None,
+            probe: Optional[Tensor] = None) -> Plan:
     """Launch a build's native kernel on ``xs``'s device with the plan's
-    warps per block (or ``warps``) and its workspace placement; raises if
-    the card refuses the launch."""
+    warps per block (or ``warps``) and its workspace placement, the
+    probed ``native_lbfgs_batch`` when given ``probe`` (int64 ``[B, 6]``,
+    :data:`PROBE_FIELDS`); raises if the card refuses the launch.
+    Returns the plan."""
     batch, n = xs.shape
-    pl = plan(box, n, params, xs.device, lib)
+    pl = plan(box, n, params, xs.device, lib, probed=probe is not None)
     ws, stride = None, 0
     if not pl.shared_bytes:
         size = (lib.lbfgspp_native_workspace_b if box
@@ -418,12 +439,15 @@ def _launch(lib: ctypes.CDLL, box: bool, bid: int, xs: Tensor, params,
                 ctypes.addressof(_cparams_b(params)), wsp, stride, w,
                 *(t.data_ptr() for t in out), stream)
         else:
-            err = lib.lbfgspp_native_lbfgs_batch(
-                bid, batch, n, xs.data_ptr(),
-                ctypes.addressof(_cparams(params)), ls, wsp, stride, w,
-                *(t.data_ptr() for t in out), stream)
+            args = (bid, batch, n, xs.data_ptr(),
+                    ctypes.addressof(_cparams(params)), ls, wsp, stride, w,
+                    *(t.data_ptr() for t in out), stream)
+            err = lib.lbfgspp_native_lbfgs_batch(*args) if probe is None \
+                else lib.lbfgspp_native_lbfgs_batch_probed(
+                    *args, probe.data_ptr())
     _launch_check(lib, err, "native_lbfgsb_batch" if box
                   else "native_lbfgs_batch")
+    return pl
 
 
 def native_lbfgs_batch(fun: str, xs: Tensor, params: LBFGSParams,
@@ -436,27 +460,51 @@ def native_lbfgs_batch(fun: str, xs: Tensor, params: LBFGSParams,
 
     A CUDA tensor launches ``native_lbfgs_batch`` (csrc/native/batch.cu; one
     warp per instance, its workspace in shared memory when :func:`plan`
-    finds room), counted in ``native_lbfgs_batch.launches``; a CPU tensor
+    finds room; probed while :func:`is_probing`), counted in
+    ``native_lbfgs_batch.launches``; a CPU tensor
     takes the host build's threaded batch over ``threads`` OS threads
     (default: every hardware thread), bit-identical to
     ``lbfgspp_tpu.native``.  ``contract=False`` takes the builds without
     multiply-add contraction: the card's is then bit for bit
     :func:`_lanes_batch`'s without contraction."""
+    if xs.device.type == "cuda":
+        return _card_batch(lambda: xs, fun, params, line_search, threads,
+                           contract)[1]
     _check_rows(xs, "native_lbfgs_batch")
     batch, n = xs.shape
     bid, ls = _builtin_id(fun, n), _ls_kind(line_search)
     nthreads = _threads(threads, xs.device)
-    out = _outputs(batch, xs.device)
-    if xs.device.type == "cpu":
-        _host(contract).lbfgspp_native_minimize_batch(
-            bid, n, batch, xs.data_ptr(), ctypes.addressof(_cparams(params)),
-            ls, *(t.data_ptr() for t in out), nthreads)
-        return out
-    if xs.device.type != "cuda":
+    if xs.device.type != "cpu":
         raise ValueError(f"native_lbfgs_batch: no kernel for {xs.device}")
-    _launch(_device_lib(contract), False, bid, xs, params, ls, out)
-    native_lbfgs_batch.launches += 1
+    out = _outputs(batch, xs.device)
+    _host(contract).lbfgspp_native_minimize_batch(
+        bid, n, batch, xs.data_ptr(), ctypes.addressof(_cparams(params)),
+        ls, *(t.data_ptr() for t in out), nthreads)
     return out
+
+
+def _card_batch(rows: Callable[[], Tensor], fun: str, params: LBFGSParams,
+                line_search: str, threads: Optional[int],
+                contract: bool) -> tuple:
+    """:func:`native_lbfgs_batch` on the card, on the rows ``rows()``
+    makes: the span :data:`LAUNCH_SPAN` from the call to the C launch's
+    return, then, when the launch was probed, its summary (enqueued after
+    the kernel, outside the span).  Returns ``(xs, outputs)``."""
+    t0 = time.perf_counter_ns()
+    with torch.profiler.record_function(LAUNCH_SPAN):
+        xs = rows()
+        _check_rows(xs, "native_lbfgs_batch")
+        batch, n = xs.shape
+        bid, ls = _builtin_id(fun, n), _ls_kind(line_search)
+        _threads(threads, xs.device)
+        out = _outputs(batch, xs.device)
+        probe = _probe_buffer(batch, xs.device) if is_probing() else None
+        pl = _launch(_device_lib(contract), False, bid, xs, params, ls, out,
+                     probe=probe)
+        native_lbfgs_batch.launches += 1
+    if probe is not None:
+        _keep_probe(probe, pl, xs.device, time.perf_counter_ns() - t0)
+    return xs, out
 
 
 def native_lbfgsb_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
@@ -521,10 +569,96 @@ def _lanes_b_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The probe
+# ---------------------------------------------------------------------------
+
+# the host span of a card launch of native_lbfgs_batch
+LAUNCH_SPAN = "lbfgspp.native.launch"
+# the probed kernel's record of an instance (csrc/native/batch.cu): its
+# %globaltimer at the entry into its warp slot and after its outputs, then
+# SM cycles: the whole slot, the objective's evaluations, the line search
+# without them, the new direction
+PROBE_FIELDS = ("start_ns", "end_ns", "total", "eval", "search",
+                "direction")
+# a probed launch's summary (probe_records): its batch, the card's resident
+# warp slots under the probed plan (SMs x blocks an SM x warps a block),
+# the launch's span (last end_ns - first start_ns), the sum of end_ns -
+# start_ns, the sums of the cycle fields, and the host span's nanoseconds
+SUMMARY_FIELDS = ("batch", "slots", "span_ns", "busy_ns", "total", "eval",
+                  "search", "direction", "host_ns")
+
+_PROBING: list = [None]     # probing()'s setting; None: follow the profiler
+_RECORDS: list = []         # (device summary, batch, slots, host_ns)
+_PROBE_BUFFERS: dict = {}   # device -> the last launch's int64 [B, 6]
+
+
+@contextlib.contextmanager
+def probing(on: bool = True):
+    """Within the block, card launches of ``native_lbfgs_batch`` take the
+    probed kernel (``on``) or the default one, whether a profiler records
+    or not."""
+    prev = _PROBING[0]
+    _PROBING[0] = bool(on)
+    try:
+        yield
+    finally:
+        _PROBING[0] = prev
+
+
+def is_probing() -> bool:
+    """Whether a card launch now takes the probed kernel: the setting of
+    the innermost :func:`probing`, else whether a ``torch.profiler``
+    records."""
+    on = _PROBING[0]
+    return torch.autograd._profiler_enabled() if on is None else on
+
+
+def _probe_buffer(batch: int, device) -> Tensor:
+    """The records' buffer of a launch: the device's last one while the
+    batch size holds (the launches of a stream reuse it in turn, each
+    reduced before the next writes it), else a new one."""
+    key = str(device)
+    buf = _PROBE_BUFFERS.get(key)
+    if buf is None or buf.shape[0] != batch:
+        buf = _PROBE_BUFFERS[key] = torch.empty(
+            batch, len(PROBE_FIELDS), dtype=torch.int64, device=device)
+    return buf
+
+
+def probe_summary(probe: Tensor) -> Tensor:
+    """The records ``probe [B, 6]`` reduced on their device, with no sync:
+    int64 ``[span_ns, busy_ns, total, eval, search, direction]``
+    (:data:`SUMMARY_FIELDS` 2-7)."""
+    start, end = probe[:, 0], probe[:, 1]
+    return torch.cat([(end.max() - start.min()).reshape(1),
+                      (end - start).sum().reshape(1), probe[:, 2:].sum(0)])
+
+
+def _keep_probe(probe: Tensor, pl: Plan, device, host_ns: int) -> None:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    _RECORDS.append((probe_summary(probe), probe.shape[0],
+                     sms * pl.blocks_per_sm * pl.warps, host_ns))
+
+
+def probe_records() -> list:
+    """Each probed launch's summary since :func:`reset_counts`, oldest
+    first, as a dict of :data:`SUMMARY_FIELDS` (cycles are SM cycles, the
+    rest nanoseconds); waits once for the card."""
+    if not _RECORDS:
+        return []
+    dev = _RECORDS[0][0].device
+    rows = torch.stack([r[0].to(dev) for r in _RECORDS]).tolist()
+    return [dict(zip(SUMMARY_FIELDS, (b, slots, *row, host)))
+            for row, (_, b, slots, host) in zip(rows, _RECORDS)]
+
+
 def reset_counts() -> None:
-    """Set both kernels' launch counts to zero."""
+    """Set both kernels' launch counts to zero and drop the probe's
+    summaries."""
     native_lbfgs_batch.launches = 0
     native_lbfgsb_batch.launches = 0
+    _RECORDS.clear()
 
 
 reset_counts()
@@ -673,15 +807,25 @@ def minimize_batch(fun: str,
         raise TypeError("minimize_batch supports builtin objectives only "
                         "(Python callbacks serialize on the interpreter "
                         "lock); use lbfgspp_tpu_torch.minimize_batched")
-    xs = _f64(x0s, resolve_device(device))
-    if xs.dim() != 2:
-        raise ValueError("x0s must be [batch, n]")
-    out = native_lbfgs_batch(fun, xs, params, line_search, threads)
+    dev = resolve_device(device)
+
+    def rows():
+        xs = _f64(x0s, dev)
+        if xs.dim() != 2:
+            raise ValueError("x0s must be [batch, n]")
+        return xs
+
+    if dev.type == "cuda":
+        xs, out = _card_batch(rows, fun, params, line_search, threads, True)
+    else:
+        xs = rows()
+        out = native_lbfgs_batch(fun, xs, params, line_search, threads)
     return NativeBatchResult(xs, out.fx, out.niter, out.nfev, out.status)
 
 
-__all__ = ["BUILTIN_OBJECTIVES", "LS_KINDS", "NativeResult",
-           "NativeBatchResult", "Plan", "available", "build_error",
-           "fast_error", "minimize", "minimize_b", "minimize_batch",
-           "native_lbfgs_batch", "native_lbfgsb_batch", "plan",
-           "reset_counts", "build"]
+__all__ = ["BUILTIN_OBJECTIVES", "LAUNCH_SPAN", "LS_KINDS", "NativeResult",
+           "NativeBatchResult", "PROBE_FIELDS", "Plan", "SUMMARY_FIELDS",
+           "available", "build_error", "fast_error", "is_probing",
+           "minimize", "minimize_b", "minimize_batch", "native_lbfgs_batch",
+           "native_lbfgsb_batch", "plan", "probe_records", "probe_summary",
+           "probing", "reset_counts", "build"]

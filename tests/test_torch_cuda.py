@@ -743,6 +743,36 @@ def test_native_global_workspace_at_n4096(cuda, box):
     assert (oh.status == 3).all()
 
 
+@pytest.mark.parametrize("ls", ["nocedalwright", "bracketing"])
+def test_native_probed_kernel_equals_default(cuda, ls):
+    """The multistart recipe at B=4096 through the probed kernel
+    (native.probing) and the default one: x and every output bit for bit,
+    the same plan, and one summary whose phases fit in the slots' cycles,
+    whose instances fit in the launch's warp slots and whose SM clock is
+    1-2 GHz."""
+    x0 = np.random.default_rng(0).uniform(-2, 2, (4096, 100))
+    p = lt.LBFGSParams(m=6, max_linesearch=256, max_iterations=400)
+    pl = native.plan(False, 100, p, cuda)
+    assert native.plan(False, 100, p, cuda, probed=True) == pl
+    native.reset_counts()
+    xd, xp = (torch.tensor(x0, device=cuda) for _ in range(2))
+    with native.probing(False):
+        od = native.native_lbfgs_batch("rosenbrock", xd, p, ls)
+    assert native.probe_records() == []
+    with native.probing():
+        op = native.native_lbfgs_batch("rosenbrock", xp, p, ls)
+    _same_bits(xd, od, xp, op)
+    (rec,) = native.probe_records()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert rec["batch"] == 4096
+    assert rec["slots"] == sms * pl.blocks_per_sm * pl.warps
+    assert 0 < rec["eval"] and 0 < rec["search"] and 0 < rec["direction"]
+    assert rec["eval"] + rec["search"] + rec["direction"] <= rec["total"]
+    assert 0 < rec["busy_ns"] <= rec["slots"] * rec["span_ns"]
+    assert 1.0 < rec["total"] / rec["busy_ns"] < 2.0
+    assert rec["host_ns"] > 0
+
+
 def test_native_launch_with_too_many_warps_raises(cuda):
     """A block of 64 warps (2048 threads) is refused by the card; the
     wrapper raises, counts no launch and leaves x as it was: nothing falls

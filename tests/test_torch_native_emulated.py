@@ -4,8 +4,10 @@
 build's flags (``cuda_build.HOST_FLAGS``) and no multiply-add contraction
 against a small emulation of the CUDA features it uses (``__global__``,
 ``blockIdx``, ``threadIdx``, ``blockDim``, the launch, dynamic shared
-memory, the attribute and occupancy calls, ``cudaGetLastError``, and the
-warp's ``__syncwarp``, ``__shfl_xor_sync``, ``__ballot_sync``): each warp is
+memory, the attribute and occupancy calls, ``cudaGetLastError``, the
+warp's ``__syncwarp``, ``__shfl_xor_sync``, ``__ballot_sync``, and the probed
+kernel's ``__shared__`` state, ``clock64()`` and ``%globaltimer``, both read
+from the host's monotonic clock): each warp is
 32 lanes, ``threadIdx.x % 32`` the lane, run as contexts (``ucontext``) of
 one host thread that hand over to each other at the warp's barrier, so a
 lane passes a ``__syncwarp`` only when all 32 have reached it, and shuffles
@@ -28,7 +30,11 @@ peak (``native_doubles_b`` in ``lbfgsb.h``) is largest: no solve may run
 out of it (status -1, which no JAX status shares).  The cases run with the
 workspace in device memory (two warps a block) and in shared memory (three
 warps a block, the last block ragged), at n = 10 (22 of 32 lanes idle) and
-at n = 37 on the builtin quadratic (the last lane group ragged).
+at n = 37 on the builtin quadratic (the last lane group ragged).  Every
+L-BFGS run is made again through the probed kernel
+(``lbfgspp_native_lbfgs_batch_probed``, two warps a block, as many as its
+probe state has rows): the same bits, and a record per instance whose
+phases fit inside its slot's time.
 
 What this cannot show: that nvcc accepts the source, or the card's own
 arithmetic (``chip_smoke.py`` phase 26 and ``tests/test_torch_cuda.py``
@@ -61,6 +67,8 @@ N_WIDE = 64
 PARAMS_WIDE = LBFGSBParams(m=12, max_iterations=40)
 N_RAGGED = 37
 GLOBAL_WARPS, SHARED_WARPS = 2, 3
+# the probed kernel's block: at most two warps (its probe state's rows)
+PROBED_WARPS = 2
 # The emulated card: an H100's shared memory (per SM, a block's opt-in
 # limit, reserved a block), at most 32 blocks and 2048 threads an SM.
 SMEM_SM, SMEM_OPTIN, SMEM_RESERVED = 233472, 232448, 1024
@@ -72,6 +80,7 @@ EMULATED_RUNTIME = r'''
 #include <ucontext.h>
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <cmath>
 #include <thread>
 #include <vector>
@@ -80,6 +89,14 @@ EMULATED_RUNTIME = r'''
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+// a block runs on one host thread, its warps in turn: the block's static
+// shared memory is the thread's
+#define __shared__ thread_local
+inline long long emu_now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+      std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+inline long long clock64() { return emu_now_ns(); }
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3 blockIdx, threadIdx;
 inline dim3 blockDim;
@@ -230,16 +247,23 @@ extern "C" long long emu_canary_fault_count() { return emu_canary_faults; }
 '''
 
 
+# the probed kernel's read of the card's wall clock
+GLOBALTIMER = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));'
+
+
 def emulated_source(src: str) -> str:
-    """batch.cu with its launches turned into calls of the emulation, and
-    its dynamic shared memory into the emulation's buffer."""
+    """batch.cu with its launches turned into calls of the emulation, its
+    dynamic shared memory into the emulation's buffer and its wall clock
+    into the host's."""
     src = re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);",
                  r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
     src, k = re.subn(r"extern __shared__ double (\w+)\[\];",
                      r"double* \1 = emu_smem.data();", src)
-    if "<<<" in src or k != 1:
-        raise AssertionError("unconverted launch or shared memory in "
-                             "batch.cu")
+    timers = src.count(GLOBALTIMER)
+    src = src.replace(GLOBALTIMER, "t = emu_now_ns();")
+    if "<<<" in src or k != 1 or timers != 1 or "asm" in src:
+        raise AssertionError("unconverted launch, shared memory or inline "
+                             "assembly in batch.cu")
     return src
 
 
@@ -322,6 +346,8 @@ def _main(lib_path):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lbfgspp_native_lbfgs_batch.argtypes = [
         i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p]
+    lib.lbfgspp_native_lbfgs_batch_probed.argtypes = [
+        i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p, p]
     lib.lbfgspp_native_lbfgsb_batch.argtypes = [
         i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p]
     lib.lbfgspp_native_plan.argtypes = [i, i, i, i, p, p, p]
@@ -360,10 +386,29 @@ def _main(lib_path):
             "canaries": bool(ws[:, stride:].isnan().all()) and
             lib.emu_canary_fault_count() == faults,
             **{k: v.tolist() for k, v in outs._asdict().items()}}
+        if box:
+            continue
+        # the same launch through the probed kernel, on a fresh workspace
+        x = torch.tensor(x0)
+        ws.fill_(np.nan)
+        outs = native._outputs(BATCH, "cpu")
+        probe = torch.full((BATCH, len(native.PROBE_FIELDS)), -1,
+                           dtype=torch.int64)
+        faults = lib.emu_canary_fault_count()
+        err = lib.lbfgspp_native_lbfgs_batch_probed(
+            bid, BATCH, n, x.data_ptr(),
+            ctypes.addressof(native._cparams(prm)), native.LS_KINDS[ls],
+            wsp, st, min(warps, PROBED_WARPS), *(t.data_ptr() for t in outs),
+            None, probe.data_ptr())
+        out["probed_" + label] = {
+            "err": err, "x": x.tolist(), "probe": probe.tolist(),
+            "canaries": bool(ws[:, stride:].isnan().all()) and
+            lib.emu_canary_fault_count() == faults,
+            **{k: v.tolist() for k, v in outs._asdict().items()}}
     # the plan at the multistart's, the box recipe's and a large shape,
     # and a launch whose block does not fit the shared-memory limit
     plans = {}
-    for box, n in ((0, 100), (1, 10), (0, 4096)):
+    for box, n in ((0, 100), (1, 10), (0, 4096), (2, 100), (2, 4096)):
         vals = (ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
         err = lib.lbfgspp_native_plan(box, n, 6, 1,
                                       *(ctypes.byref(v) for v in vals))
@@ -373,8 +418,15 @@ def _main(lib_path):
     too_big = lib.lbfgspp_native_lbfgs_batch(
         0, BATCH, N, x.data_ptr(), ctypes.addressof(native._cparams(PARAMS)),
         2, None, 0, 64, *(t.data_ptr() for t in outs), None)
+    probe = torch.zeros(BATCH, len(native.PROBE_FIELDS), dtype=torch.int64)
+    too_big_probed = lib.lbfgspp_native_lbfgs_batch_probed(
+        0, BATCH, N, x.data_ptr(), ctypes.addressof(native._cparams(PARAMS)),
+        2, None, 0, PROBED_WARPS + 1, *(t.data_ptr() for t in outs), None,
+        probe.data_ptr())
     print(json.dumps({"runs": out, "plans": plans, "too_big": too_big,
-                      "untouched": bool(x.equal(torch.tensor(cases()[0])))}))
+                      "too_big_probed": too_big_probed,
+                      "untouched": bool(x.equal(torch.tensor(cases()[0])) and
+                                        not probe.any())}))
 
 
 @pytest.fixture(scope="module")
@@ -467,7 +519,31 @@ def test_emulated_plan_and_refused_launch(emulated):
     plans = emulated["plans"]
     for key, want in plans.items():
         box, n = map(int, key.split(","))
-        assert want == _expected_plan(box, n), key
+        assert want == _expected_plan(box == 1, n), key
     assert plans["0,100"][1:3] == [1, 13] and plans["0,100"][3] > 0
     assert plans["1,10"][3] > 0 and plans["0,4096"][3] == 0
+    assert plans["2,100"] == plans["0,100"]
+    assert plans["2,4096"] == plans["0,4096"]
     assert emulated["too_big"] != 0 and emulated["untouched"]
+    assert emulated["too_big_probed"] != 0
+
+
+@pytest.mark.parametrize("label", [k for k, v in RUNS.items() if not v[0]])
+def test_emulated_probed_kernel_equals_default(emulated, label):
+    """The probed kernel gives the default kernel's x and outputs bit for
+    bit, and one record per instance: start_ns <= end_ns, every phase's
+    cycles >= 0 and together within the slot's."""
+    got, want = emulated["runs"]["probed_" + label], emulated["runs"][label]
+    assert got["err"] == 0 and got["canaries"]
+    for k in ("x", "fx", "gnorm", "niter", "nfev", "status"):
+        assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
+    rec = dict(zip(native.PROBE_FIELDS, np.asarray(got["probe"]).T))
+    assert (rec["start_ns"] > 0).all()
+    assert (rec["start_ns"] <= rec["end_ns"]).all()
+    phases = np.stack([rec["eval"], rec["search"], rec["direction"]])
+    assert (phases >= 0).all() and (rec["eval"] > 0).all()
+    assert (phases.sum(0) <= rec["total"]).all()
+    # an instance that iterated searched and turned
+    moved = np.asarray(want["niter"]) > 1
+    assert moved.any() and (rec["search"][moved] > 0).all()
+    assert (rec["direction"][moved] > 0).all()
