@@ -445,13 +445,13 @@ def emulated(tmp_path_factory):
         ["g++", *cuda_build.HOST_FLAGS, *native._NO_CONTRACT["cpu"],
          "-pthread", "-I", build, "-I", NATIVE,
          os.path.join(build, "batch_emulated.cpp"), "-o", lib_path],
-        capture_output=True, text=True, timeout=600)
+        capture_output=True, text=True, timeout=250)
     assert proc.returncode == 0, proc.stderr[-4000:]
     code = (f"import sys; sys.path[:0] = [{os.path.dirname(__file__)!r}, "
             f"{REPO!r}]; import test_torch_native_emulated as t; "
             f"t._main({lib_path!r})")
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=REPO)
+                         text=True, timeout=250, cwd=REPO)
     assert run.returncode == 0, run.stderr[-4000:]
     return json.loads(run.stdout.strip().splitlines()[-1])
 

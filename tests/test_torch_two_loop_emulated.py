@@ -2,12 +2,14 @@
 
 ``lbfgspp_tpu_torch/csrc/two_loop.cu`` is compiled with the host C++
 compiler against an emulation of the few CUDA features it uses: each
-block's threads run as host threads (``__syncwarp``, ``__syncthreads`` and
-the shuffles on barriers), and ``csrc/hopper_async.cuh``, which holds every
-piece of inline PTX, is replaced by a model of it: a bulk copy or a
-``cp.async`` is a ``memcpy`` that first checks the alignment the hardware
-demands, and an mbarrier counts arrivals and transaction bytes and flips
-its phase as the PTX specification says.  The launch plan comes from
+block's threads run as contexts (``ucontext``) of one host thread that hand
+over to each other wherever a thread waits (``__syncwarp``,
+``__syncthreads`` and the shuffles on barriers, an mbarrier's phase), and
+``csrc/hopper_async.cuh``, which holds every piece of inline PTX, is
+replaced by a model of it: a bulk copy or a ``cp.async`` is a ``memcpy``
+that first checks the alignment the hardware demands, and an mbarrier
+counts arrivals and transaction bytes and flips its phase as the PTX
+specification says.  The launch plan comes from
 ``fused.launch_plan``, so the walk, the stage ring, both copy paths, the
 unstaged plan and both recursions run as on the card, and their result is
 held against ``fused.two_loop_plain`` (tolerances as on the card: 1e-12 in
@@ -72,8 +74,8 @@ TYPES = {"float32": (torch.float32, torch.float32, "f32"),
 
 EMULATED_RUNTIME = r'''
 #pragma once
+#include <ucontext.h>
 #include <atomic>
-#include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstdint>
@@ -81,7 +83,6 @@ EMULATED_RUNTIME = r'''
 #include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
 #define __global__
 #define __device__
@@ -90,7 +91,7 @@ EMULATED_RUNTIME = r'''
 #define __noinline__
 #define __launch_bounds__(...)
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local dim3 blockIdx, threadIdx;
+inline dim3 blockIdx, threadIdx;
 inline dim3 gridDim, blockDim;
 struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
@@ -103,24 +104,78 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
 
-// One block at a time; its threads run concurrently.
+// One block at a time.  Its threads are contexts (ucontext) of one host
+// thread, run in turn: a thread runs until it waits (at its warp's or its
+// block's barrier, or on an mbarrier's phase), then hands over to the next
+// thread that has not left the kernel.  (Host threads that spin at a
+// barrier took minutes on a machine whose cores were busy with other
+// tests; contexts take one core and seconds.)
+constexpr size_t kEmuStack = 1 << 18;  // a context's stack
+struct EmuBar { int count, arrived = 0; unsigned gen = 0; };
 struct EmuBlock {
-  explicit EmuBlock(int threads) : block(threads), slots(threads) {
-    for (int w = 0; w < threads / 32; ++w)
-      warps.emplace_back(std::make_unique<std::barrier<>>(32));
-  }
-  std::barrier<> block;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  explicit EmuBlock(int threads)
+      : threads(threads), ctx(threads), left(threads), block{threads},
+        warps(threads / 32, EmuBar{32}), slots(threads) {}
+  int threads, current = 0, finished = 0;
+  std::vector<ucontext_t> ctx;
+  ucontext_t back;
+  std::vector<char> left;
+  EmuBar block;
+  std::vector<EmuBar> warps;
   std::vector<uint64_t> slots;
 };
 inline EmuBlock* g_block;
+inline void* g_kernel;
 inline unsigned char* g_smem;
 inline size_t g_smem_bytes;
 inline std::atomic<long long> g_bulk_copies{0}, g_cp_async_copies{0};
 
+[[noreturn]] inline void emu_fail(const char* what) {
+  std::fprintf(stderr, "emulated kernel fault: %s\n", what);
+  std::abort();
+}
+// Hand over to the next thread of the block that has not left the kernel.
+inline void emu_yield() {
+  EmuBlock* b = g_block;
+  const int prev = b->current;
+  int next = prev;
+  do next = (next + 1) % b->threads; while (b->left[next]);
+  b->current = next;
+  threadIdx.x = static_cast<unsigned>(next);
+  swapcontext(&b->ctx[prev], &b->ctx[next]);
+}
+// Let the others run until done() holds; a wait past 20 s is a hang on
+// the card.
+template <class C> void emu_wait(C done, const char* what) {
+  const auto t0 = std::chrono::steady_clock::now();
+  while (!done()) {
+    if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(20))
+      emu_fail(what);
+    emu_yield();
+  }
+}
+inline void emu_arrive(EmuBar& bar) {
+  const unsigned gen = bar.gen;
+  if (++bar.arrived == bar.count) {
+    bar.arrived = 0;
+    ++bar.gen;
+  } else {
+    emu_wait([&] { return bar.gen != gen; }, "barrier never completed");
+  }
+}
+// A thread: the kernel, then the next thread, the last back to the
+// launcher.
+template <class F> void emu_thread_main() {
+  (*static_cast<F*>(g_kernel))();
+  EmuBlock* b = g_block;
+  b->left[b->current] = 1;
+  if (++b->finished == b->threads) swapcontext(&b->ctx[b->current], &b->back);
+  emu_yield();
+}
+
 inline unsigned char* emu_smem() { return g_smem; }
-inline void __syncwarp() { g_block->warps[threadIdx.x / 32]->arrive_and_wait(); }
-inline void __syncthreads() { g_block->block.arrive_and_wait(); }
+inline void __syncwarp() { emu_arrive(g_block->warps[threadIdx.x / 32]); }
+inline void __syncthreads() { emu_arrive(g_block->block); }
 template <class T> T emu_shfl(T x, int src_lane) {
   const int warp = threadIdx.x / 32;
   __syncwarp();
@@ -142,10 +197,6 @@ template <class T> T __shfl_down_sync(unsigned, T x, int off) {
 }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
-}
-[[noreturn]] inline void emu_fail(const char* what) {
-  std::fprintf(stderr, "emulated kernel fault: %s\n", what);
-  std::abort();
 }
 inline size_t __cvta_generic_to_shared(const void* p) {
   const unsigned char* c = static_cast<const unsigned char*>(p);
@@ -171,22 +222,26 @@ template <class F>
 void emu_launch(int grid, int threads, size_t smem, cudaStream_t, F fn) {
   gridDim.x = grid;
   blockDim.x = threads;
+  g_kernel = &fn;
   std::vector<unsigned char> buf(smem + 16);
+  std::vector<std::unique_ptr<char[]>> stacks;
+  for (int t = 0; t < threads; ++t) stacks.emplace_back(new char[kEmuStack]);
   for (int blk = 0; blk < grid; ++blk) {
     std::memset(buf.data(), 0xFF, buf.size());  // NaN where nothing wrote
     g_smem = buf.data();
     g_smem_bytes = smem;
     EmuBlock block(threads);
     g_block = &block;
-    std::vector<std::thread> ts;
+    blockIdx.x = blk;
     for (int t = 0; t < threads; ++t) {
-      ts.emplace_back([&, t] {
-        blockIdx.x = blk;
-        threadIdx.x = t;
-        fn();
-      });
+      getcontext(&block.ctx[t]);
+      block.ctx[t].uc_stack.ss_sp = stacks[t].get();
+      block.ctx[t].uc_stack.ss_size = kEmuStack;
+      block.ctx[t].uc_link = nullptr;
+      makecontext(&block.ctx[t], &emu_thread_main<F>, 0);
     }
-    for (auto& th : ts) th.join();
+    threadIdx.x = 0;
+    swapcontext(&block.back, &block.ctx[0]);
   }
 }
 '''
@@ -232,12 +287,8 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
 // try_wait.parity succeeds once the phase of that parity has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   EmuBarrier* b = emu_barrier(bar);
-  const auto t0 = std::chrono::steady_clock::now();
-  while (__atomic_load_n(&b->phase, __ATOMIC_ACQUIRE) == parity) {
-    if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(20))
-      emu_fail("mbarrier phase never completed");
-    std::this_thread::yield();
-  }
+  emu_wait([&] { return b->phase != parity; },
+           "mbarrier phase never completed");
 }
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
@@ -374,6 +425,10 @@ def _run_case(lib, label, dtype, mode):
 
 def _main(lib_path):
     """Run every case against the emulated library; print one JSON line."""
+    # The cases are small.  OpenMP's threads spin at the end of each parallel
+    # region, and a pool of them beside other busy processes took ten
+    # times as long as one thread.
+    torch.set_num_threads(1)
     import ctypes
     lib = ctypes.CDLL(lib_path)
     common = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
@@ -392,25 +447,12 @@ def _main(lib_path):
     print(json.dumps(results))
 
 
-def _probe_compiler(cxx, build):
-    probe = os.path.join(build, "probe.cpp")
-    with open(probe, "w") as f:
-        f.write("#include <barrier>\nint main() { std::barrier b(1); "
-                "b.arrive_and_wait(); }\n")
-    proc = subprocess.run([cxx, "-std=c++20", "-pthread", probe, "-o",
-                           os.path.join(build, "probe")],
-                          capture_output=True, text=True, timeout=120)
-    return proc.returncode == 0
-
-
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to build the emulated kernel")
     build = str(tmp_path_factory.mktemp("two_loop_emulated"))
-    if not _probe_compiler(cxx, build):
-        pytest.skip("needs a C++20 compiler with <barrier>")
     with open(os.path.join(CSRC, "two_loop.cu")) as f:
         source = emulated_source(f.read())
     files = {"cuda_runtime.h": EMULATED_RUNTIME,
@@ -421,15 +463,15 @@ def emulated(tmp_path_factory):
             f.write(text)
     lib_path = os.path.join(build, "libtwo_loop_emulated.so")
     proc = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
+        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w",
          "-I", build, os.path.join(build, "two_loop_emulated.cpp"), "-o",
-         lib_path], capture_output=True, text=True, timeout=600)
+         lib_path], capture_output=True, text=True, timeout=100)
     assert proc.returncode == 0, proc.stderr[-4000:]
     code = (f"import sys; sys.path[:0] = [{os.path.dirname(__file__)!r}, "
             f"{REPO!r}]; import test_torch_two_loop_emulated as t; "
             f"t._main({lib_path!r})")
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=REPO)
+                         text=True, timeout=250, cwd=REPO)
     assert run.returncode == 0, run.stderr[-4000:]
     return json.loads(run.stdout.strip().splitlines()[-1])
 
