@@ -7,24 +7,38 @@ from the root of a checkout.  The cell, its configuration, its traffic
 and its metrics come from ``BENCHMARK.json`` and the files named after
 them under ``portbench/`` (see README.md).  A run loads and warms up (the
 set-up, timed as ``setup_s``), measures for ``--seconds`` seconds in a
-closed loop (one batch in flight), reads the device's
+closed loop (one unit in flight), reads the device's
 peak memory, frees the program's state, has the plain reference judge a
 sample of what the window produced, and prints one JSON line: with
 ``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics from a ``torch.profiler`` trace of the window.
+
+A cell on one card runs in this process.  A cell on ``chips`` cards
+starts as many rank processes (:func:`launch`), rank r on ``cuda:r``, all
+in one NCCL group joined through a rendezvous file over loopback; each
+runs the whole of :func:`run_cell` in lockstep, and this process merges
+their results into the one line (:func:`merge`).
 """
 
 import time
 
 _T0 = time.perf_counter()
+# the same instant on the clock every process of the host shares
+_M0 = time.monotonic()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import gc  # noqa: E402
 import importlib.util  # noqa: E402
+import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
+import traceback  # noqa: E402
 import types  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +46,9 @@ HERE = os.path.join(ROOT, "portbench")
 # top-level module names that may not be loaded once the window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "lbfgspp_tpu")
 EXIT_NO_DEVICE, EXIT_BUSY, EXIT_FORBIDDEN = 3, 4, 5
+EXIT_RANK, EXIT_LIMIT = 6, 7
+# a multi-card run's limit, inside the 360 s a run may take
+RANK_LIMIT_S = 330.0
 
 
 def _log(*args) -> None:
@@ -103,18 +120,68 @@ def cache_dirs() -> None:
     os.environ["TRITON_CACHE_DIR"] = os.path.join(base, "triton")
 
 
+def _usage(dev) -> dict:
+    """This process's CPU seconds so far, and its card allocator's
+    retries, device allocations and frees."""
+    import resource
+
+    import torch
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    out = dict(cpu_s=ru.ru_utime + ru.ru_stime)
+    if dev.type == "cuda":
+        st = torch.cuda.memory_stats(dev)
+        out.update(alloc_retries=st.get("num_alloc_retries", 0),
+                   device_allocs=st.get("num_device_alloc", 0),
+                   device_frees=st.get("num_device_free", 0))
+    return out
+
+
+class _Collections:
+    """The garbage collector's passes while this is in ``gc.callbacks``:
+    by generation, ``[count, seconds, longest]``."""
+
+    def __init__(self):
+        self.by_gen, self._t = {}, 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+            return
+        took = time.perf_counter() - self._t
+        c = self.by_gen.setdefault(info["generation"], [0, 0.0, 0.0])
+        c[0], c[1], c[2] = c[0] + 1, c[1] + took, max(c[2], took)
+
+
+def _agree(stop: bool, group, dev) -> bool:
+    """Rank 0's decision, broadcast to every rank of ``group``."""
+    import torch
+    import torch.distributed as dist
+    flag = torch.tensor([int(stop)], device=dev)
+    dist.broadcast(flag, 0, group=group)
+    return bool(flag.item())
+
+
 def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
-             trace: bool, device, answers=None) -> dict:
+             trace: bool, device, answers=None, group=None, rank: int = 0,
+             world: int = 1, prepare=None) -> dict:
     """One run of ``cell`` on ``device``: set-up, window, reference.
 
     ``answers(sample, ctx) -> sample`` puts other answers in the program's
-    place before the reference judges them (the controls, portbench/
-    control.py); a run of the benchmark passes none.
+    place before the reference judges them, and ``prepare(ctx)`` may change
+    what the entry builds (the controls, portbench/control.py); a run of
+    the benchmark passes neither.
+
+    ``group``, ``rank``, ``world``: the ``torch.distributed`` group of a
+    multi-card run and this process's place in it (the entry and the
+    reference see them as ``ctx.group``, ``ctx.rank``, ``ctx.world``); rank
+    0's clock ends the window, and its decision is broadcast after every
+    unit, so that every rank runs the same units.
 
     Returns the result line's fields (``correct``, ``attempted``,
     ``failed``, ``metrics``, ``device``, ``checks``, and traced
-    ``breakdown``), plus ``setup_s``, ``numbers`` (every number the
-    reference gave) and ``trace`` (the window's summary)."""
+    ``breakdown``), plus ``setup_s``, ``window_start`` (on
+    ``time.monotonic``), ``numbers`` (every number the reference gave) and
+    ``trace`` (the window's summary)."""
     import torch
     from portbench import trace as tr
     dev = torch.device(device)
@@ -123,9 +190,12 @@ def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
     torch.backends.cudnn.allow_tf32 = bool(cfg.get("tf32", False))
     ctx = types.SimpleNamespace(
         cfg=cfg, traffic=traffic, seed=int(seed), device=dev,
-        trace=bool(trace),
+        trace=bool(trace), group=group, rank=int(rank), world=int(world),
         objective=load_module("objectives", traffic["objective"]))
+    if prepare is not None:
+        prepare(ctx)
     entry = load_module("entries", traffic["entry"]).make(ctx)
+    marks = dict(built=time.monotonic())
 
     def sync():
         if on_card:
@@ -133,6 +203,11 @@ def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
 
     entry.warm()
     sync()
+    marks["warmed"] = time.monotonic()
+    usage = collections = None
+    if group is not None:
+        usage, collections = _usage(dev), _Collections()
+        gc.callbacks.append(collections)
     cap = traffic.get("trace_units") if trace else None
     prof = None
     if trace:
@@ -145,6 +220,7 @@ def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
     units, unit_s, good, attempted, failed = 0, [], 0, 0, 0
     with torch.profiler.record_function(tr.WINDOW_SPAN):
         start = time.perf_counter()
+        window_start = time.monotonic()
         while True:
             u0 = time.perf_counter()
             with torch.profiler.record_function("portbench.unit"):
@@ -152,11 +228,19 @@ def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
             unit_s.append(time.perf_counter() - u0)
             units, attempted, failed, good = (units + 1, attempted + a,
                                               failed + f, good + g)
-            if time.perf_counter() - start >= seconds or (
-                    cap is not None and units >= cap):
+            stop = time.perf_counter() - start >= seconds or (
+                cap is not None and units >= cap)
+            if group is not None:
+                stop = _agree(stop, group, dev)
+            if stop:
                 break
         sync()
         window_s = time.perf_counter() - start
+    if usage is not None:
+        gc.callbacks.remove(collections)
+        usage = {k: v - usage[k] for k, v in _usage(dev).items()}
+        usage["gc"] = {g: [n, round(t, 4), round(m, 4)]
+                       for g, (n, t, m) in sorted(collections.by_gen.items())}
     after = entry.counters()
     if prof is not None:
         prof.stop()
@@ -179,6 +263,12 @@ def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
             metrics[m["name"]] = dict(value=float(value), unit=m["unit"])
     if not trace:
         metrics["setup_s"] = dict(value=float(setup_s), unit="s")
+    if group is not None:
+        half = 0.5 * sum(unit_s)
+        first = sum(1 for t in itertools.accumulate(unit_s) if t <= half)
+        _log(f"rank {rank}: set-up {setup_s:.3f} s, window {window_s:.3f} "
+             f"s, {units} units ({first} in its first half of unit time), "
+             f"peak {peak} bytes; window's {usage}")
     sample = entry.sample()
     del entry
     if answers is not None:
@@ -203,9 +293,191 @@ def run_cell(spec, cell, cfg, traffic, seed: int, seconds: float,
                            window_s=summary["window_s"])
         out["breakdown"] = summary["breakdown"]
     out["checks"] = checks
-    out.update(setup_s=setup_s, numbers=numbers, trace=summary,
-               counters=counters, units=units, unit_s=unit_s)
+    marks["window"] = window_start
+    out.update(setup_s=setup_s, window_start=window_start, marks=marks,
+               numbers=numbers,
+               trace=summary, counters=counters, extras=extras, units=units,
+               unit_s=unit_s)
     return out
+
+
+# what a rank hands the launcher
+RANK_KEYS = ("correct", "attempted", "failed", "metrics", "device",
+             "breakdown", "checks", "window_start", "numbers", "counters",
+             "units", "marks")
+
+
+def rank_main(task_dir: str, rank: int) -> int:
+    """A rank of :func:`launch`: join the group, run the cell, check the
+    traced window and the loaded modules, write ``result<rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from portbench.trace import BusyCheckError, check_busy
+    task = load_json(task_dir, "task.json")
+    world = int(task["world"])
+    device = "cpu"
+    if task["kind"] == "cuda":
+        torch.cuda.set_device(rank)
+        device = f"cuda:{rank}"
+    dist.init_process_group(
+        task["backend"],
+        init_method="file://" + os.path.join(task_dir, "rendezvous"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=float(task["limit_s"]) + 60))
+    joined = time.monotonic()
+    code = 0
+    try:
+        prepare = answers = None
+        if task.get("hooks"):
+            module, name = task["hooks"].split(":")
+            prepare, answers = getattr(importlib.import_module(module),
+                                       name)(*task.get("hook_args", []))
+        out = run_cell(task["spec"], task["cell"], task["cfg"],
+                       task["traffic"], task["seed"], task["seconds"],
+                       bool(task["trace"]), device, answers=answers,
+                       group=dist.group.WORLD, rank=rank, world=world,
+                       prepare=prepare)
+        if task["trace"] and device != "cpu":
+            try:
+                check_busy(out["device"]["busy_s"],
+                           out["device"]["window_s"])
+            except BusyCheckError as e:
+                _log(f"rank {rank}: traced window refused: {e}")
+                code = EXIT_BUSY
+        found = forbidden_loaded()
+        if found:
+            _log(f"rank {rank}: forbidden modules loaded: {found}")
+            code = EXIT_FORBIDDEN
+        t0 = float(task["t0"])
+        marks = dict(start=_M0, joined=joined, **out["marks"])
+        _log(f"rank {rank}: set-up marks from the launcher's start "
+             f"{ {k: round(v - t0, 3) for k, v in marks.items()} }")
+        _log(f"rank {rank}: units {out['units']} counters "
+             f"{out['counters']} extras {out['extras']} numbers "
+             f"{out['numbers']}")
+        with open(os.path.join(task_dir, f"result{rank}.json"), "w") as f:
+            json.dump({k: out[k] for k in RANK_KEYS if k in out}, f)
+    except BaseException:
+        # leave at once: the other ranks may wait in a collective, and the
+        # group's teardown would wait with them
+        traceback.print_exc()
+        code = 1
+    if code:
+        sys.stderr.flush()
+        os._exit(code)
+    dist.destroy_process_group()
+    return 0
+
+
+def _worst(values):
+    """The largest value, NaN if any is NaN (every limit is an upper
+    one)."""
+    return math.nan if any(math.isnan(v) for v in values) else max(values)
+
+
+def merge(results, trace: bool) -> dict:
+    """The result line of a multi-card run from its ranks' results:
+    ``attempted``, ``failed`` and (untraced) the metrics of rank 0; the
+    fullest card's peak; traced, ``busy_s``, ``window_s``, ``breakdown``
+    and the per-layer metrics of the least busy card; every check at its
+    worst over the ranks; ``setup_s`` from this process's start to rank
+    0's window."""
+    r0 = results[0]
+    pick = r0
+    if trace:
+        pick = min(results, key=lambda r: r["device"]["busy_s"] /
+                   r["device"]["window_s"])
+    checks = {k: dict(value=_worst([r["checks"][k]["value"]
+                                    for r in results]),
+                      limit=c["limit"]) for k, c in r0["checks"].items()}
+    correct = all(r["correct"] for r in results) and \
+        r0["attempted"] > 0 and r0["failed"] == 0 and all(
+            math.isfinite(c["value"]) and c["value"] <= c["limit"]
+            for c in checks.values())
+    device = dict(r0["device"], count=len(results), memory_peak_bytes=max(
+        r["device"]["memory_peak_bytes"] for r in results))
+    metrics = dict(pick["metrics"])
+    if trace:
+        device.update(busy_s=pick["device"]["busy_s"],
+                      window_s=pick["device"]["window_s"])
+    else:
+        metrics["setup_s"] = dict(value=float(r0["window_start"] - _M0),
+                                  unit="s")
+    out = dict(correct=bool(correct), attempted=int(r0["attempted"]),
+               failed=int(r0["failed"]), metrics=metrics, device=device)
+    if trace:
+        out["breakdown"] = pick["breakdown"]
+    out["checks"] = checks
+    out.update(numbers=r0["numbers"], counters=r0["counters"],
+               units=r0["units"], cards=[r["device"] for r in results])
+    return out
+
+
+def launch(spec, cell, cfg, traffic, seed: int, seconds: float,
+           trace: bool, world: int, kind: str = "cuda",
+           backend: str = "nccl", hooks=None, hook_args=(),
+           limit_s=None):
+    """Run ``cell`` on ``world`` fresh rank processes; ``(0, merged
+    result)``, or ``(code, None)`` once a rank has failed or the run has
+    outlasted its limit (``limit_s``, else :data:`RANK_LIMIT_S`), every
+    rank then killed.  The ranks rendezvous through a file in a temporary directory
+    and open nothing beyond loopback; their output goes to standard error.
+    ``hooks`` ("module:function", called with ``hook_args`` in every rank)
+    returns the rank's ``(prepare, answers)`` (the controls)."""
+    limit = float(limit_s or RANK_LIMIT_S)
+    tmp = tempfile.mkdtemp(prefix="portbench-ranks-")
+    procs = []
+    try:
+        with open(os.path.join(tmp, "task.json"), "w") as f:
+            json.dump(dict(spec=spec, cell=cell, cfg=cfg, traffic=traffic,
+                           seed=int(seed), seconds=float(seconds),
+                           trace=bool(trace), world=int(world), kind=kind,
+                           backend=backend, hooks=hooks,
+                           hook_args=list(hook_args), limit_s=limit,
+                           t0=_M0), f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        # a rank's tensors are few and large: segments that grow keep the
+        # allocator's cached blocks from splitting the card's memory
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "portbench.run", "--rank-task", tmp,
+                 str(rank)], stdout=2, env=env, cwd=ROOT))
+        deadline = time.monotonic() + limit
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                _log(f"rank {bad[0]} exited with {codes[bad[0]]}; every "
+                     "rank ended")
+                return EXIT_RANK, None
+            if all(c == 0 for c in codes):
+                break
+            if time.monotonic() > deadline:
+                _log(f"the run outlasted its limit of {limit} s; every "
+                     "rank ended")
+                return EXIT_LIMIT, None
+            time.sleep(0.05)
+        results = [load_json(tmp, f"result{r}.json") for r in range(world)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(results):
+        if trace:
+            d = res["device"]
+            _log(f"card {r}: busy_s {d['busy_s']!r} window_s "
+                 f"{d['window_s']!r}")
+    return 0, merge(results, trace)
 
 
 def _print_checks(out) -> None:
@@ -221,6 +493,9 @@ def line_of(out) -> str:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--rank-task"]:
+        return rank_main(argv[1], int(argv[2]))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -229,15 +504,27 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cache_dirs()
     spec, cell, cfg, traffic = resolve(args.workload)
-    if int(cell["chips"]) != 1:
-        raise SystemExit(f"portbench: {args.workload} asks for "
-                         f"{cell['chips']} cards; the harness runs a cell "
-                         "on one")
+    chips = int(cell["chips"])
     import torch
     found = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if not found:
-        _log("the cell needs a CUDA device; found none")
+    if found < chips:
+        _log(f"the cell needs {chips} CUDA device(s); found {found}")
         return EXIT_NO_DEVICE
+    if chips > 1:
+        rc, out = launch(spec, cell, cfg, traffic, args.seed, args.seconds,
+                         bool(args.trace), chips)
+        if rc:
+            return rc
+        found = forbidden_loaded()
+        if found:
+            _log(f"forbidden modules loaded: {found}")
+            return EXIT_FORBIDDEN
+        _log(f"setup_s {out['metrics'].get('setup_s')} units "
+             f"{out['units']} counters {out['counters']} numbers "
+             f"{out['numbers']} cards {out['cards']}")
+        _print_checks(out)
+        print(line_of(out), flush=True)
+        return 0
     out = run_cell(spec, cell, cfg, traffic, args.seed, args.seconds,
                    bool(args.trace), "cuda:0")
     if args.trace:

@@ -20,6 +20,7 @@ one of ``"device"`` (a kernel, copy or memset on ``device``), ``"span"``
 
 from __future__ import annotations
 
+import bisect
 import math
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -83,6 +84,21 @@ def idle_gaps(intervals: Iterable[Tuple[int, int]], lo: int,
     return gaps
 
 
+def union_inside_ns(intervals: Iterable[Tuple[int, int]],
+                    inside: Iterable[Tuple[int, int]]) -> int:
+    """Length of the union of ``intervals`` within the union of
+    ``inside``."""
+    ivs = merge(intervals)
+    starts = [a for a, _ in ivs]
+    total = 0
+    for a, b in merge(inside):
+        i = max(0, bisect.bisect_right(starts, a) - 1)
+        while i < len(ivs) and ivs[i][0] < b:
+            total += max(0, min(ivs[i][1], b) - max(ivs[i][0], a))
+            i += 1
+    return total
+
+
 def check_busy(busy_s: float, window_s: float) -> None:
     """Raise unless ``0 < busy_s <= window_s``, both finite."""
     ok = all(isinstance(v, (int, float)) and math.isfinite(v)
@@ -108,7 +124,10 @@ def summarize(events: Sequence[Event], device: int) -> Dict:
 
     Returns ``window_s``, ``busy_s`` (the union, clipped), ``by_kernel``
     (name -> [seconds inside the window, launches]), ``aten_ops`` (CPU
-    operators named ``aten::`` inside the window), and the ``breakdown``
+    operators named ``aten::`` inside the window), ``kernels`` (the
+    device's ``(name, start_ns, end_ns)`` that overlap the window),
+    ``spans`` (the harness's spans but the window's, clipped to it),
+    ``span_ns`` (the window's ends), and the ``breakdown``
     of the contract: the ten device operations that took
     most time, and the ten longest idle gaps, each named by the innermost
     harness span open at its middle.  Raises :class:`BusyCheckError` if
@@ -138,6 +157,11 @@ def summarize(events: Sequence[Event], device: int) -> Dict:
     return dict(
         window_s=(hi - lo) * 1e-9, busy_s=busy * 1e-9, by_kernel=by_kernel,
         aten_ops=aten,
+        kernels=[(e.name, e.start_ns, e.end_ns) for e in dev
+                 if e.end_ns > lo and e.start_ns < hi],
+        spans=[(e.name, max(e.start_ns, lo), min(e.end_ns, hi))
+               for e in spans if e.end_ns > lo and e.start_ns < hi],
+        span_ns=(lo, hi),
         breakdown=dict(
             device_ops=[[name, row[0]] for name, row in top],
             idle_gaps=[[_innermost(spans, (a + b) / 2), (b - a) * 1e-9]
