@@ -14,11 +14,13 @@
 //   native_lbfgsb_batch: L-BFGS-B with More-Thuente and per-instance
 //     bounds lb, ub [B, n].
 //
-// native_lbfgs_batch is a template over the policy: Warp, the default, and
-// ProbedWarp, the probed kernel, whose lane 0 clocks each solve's phases
-// (core.h's X::mark) and writes one record per instance into probe [B, 6]
-// (lbfgspp_native_lbfgs_batch_probed).  Every hook of Warp is empty, so the
-// default kernel is the code it was without them.
+// Both kernels are templates over the policy: Warp, the default, and the
+// probed kernels' ProbedWarp (native_lbfgs_batch) and ProbedWarpB
+// (native_lbfgsb_batch), whose lane 0 clocks each solve's phases (core.h's
+// X::mark) and writes one record per instance into probe [B, 6]
+// (lbfgspp_native_lbfgs_batch_probed) or [B, 8]
+// (lbfgspp_native_lbfgsb_batch_probed).  Every hook of Warp is empty, so
+// the default kernels are the code they were without them.
 //
 // x [B, n] f64 is solved in place; the outputs fx, gnorm (projected for the
 // box solve), niter, nfev and status are [B], written by lane 0.  A block
@@ -70,6 +72,12 @@ constexpr int kBoundThreads = 2 * ln::kWarp;
 #ifndef LBFGSPP_LBFGSB_MIN_BLOCKS
 #define LBFGSPP_LBFGSB_MIN_BLOCKS 16
 #endif
+// The probed box kernel's: 14 blocks an SM, 72 registers, the most that
+// keep the 28 warps an SM which its shared memory allows at n = 10 (15,248
+// bytes a block).  At the default's 64 its clock reads around the Cauchy
+// point and the subspace step spilled into the hot step: +12.7% against the
+// default kernel at 100,000 starts; at 72, -1.4% (on the H100, in turns).
+constexpr int kProbedBoxMinBlocks = 14;
 
 // The card's policy (core.h): lane l of the instance's warp owns the
 // indices i = l (mod 32).
@@ -228,6 +236,88 @@ struct ProbedWarp : Warp {
   };
 };
 
+// The box kernel's probed policy: ProbedWarp's design for minimize_b's
+// marks (core.h's Boundary), in a row of its own.  A direction runs from a
+// search's end to the next search's begin, and the Cauchy point from its
+// begin to the subspace step's begin, so each shared boundary is one clock
+// read: five an iteration besides the evaluations' two.  Its record
+// (kProbeFieldsB) is ProbedWarp's six fields, then the cycles of the
+// Cauchy points and of the subspace steps (both inside the directions').
+constexpr int kProbeFieldsB = kProbeFields + 2;
+// Lane 0's running state, a row per warp: [0] clock64 at the last search's
+// begin or end (kNever before the first), [1] at the last evaluation's,
+// Cauchy point's or subspace step's begin, [2] clock64 and [3]
+// %globaltimer at the entry, [4 ..] the cycles of eval, search,
+// direction, cauchy and subspace so far.
+__shared__ long long probe_state_b[kProbeWarps][kProbeFieldsB + 1];
+
+struct ProbedWarpB : Warp {
+  __device__ static __forceinline__ long long* state() {
+    return probe_state_b[threadIdx.x / ln::kWarp];
+  }
+  __device__ static __forceinline__ void begin() {
+    if (lane() != 0) return;
+    long long* s = state();
+    s[2] = clock64();
+    s[3] = globaltimer_ns();
+    s[0] = kNever;
+    for (int i = 4; i <= kProbeFieldsB; ++i) s[i] = 0;
+  }
+  __device__ static __forceinline__ void mark(ln::Boundary m) {
+    if (lane() != 0) return;
+    long long* s = state();
+    const long long now = clock64();
+    switch (m) {
+      case ln::kSearchBegin:
+        if (s[0] != kNever) s[6] += now - s[0];
+        s[0] = now;
+        break;
+      case ln::kSearchEnd:
+        s[5] += now - s[0];
+        s[0] = now;
+        break;
+      case ln::kEvalBegin:
+      case ln::kCauchyBegin: s[1] = now; break;
+      case ln::kEvalEnd: {
+        const long long d = now - s[1];
+        s[4] += d;
+        // every evaluation but the first is a search's
+        if (s[1] > s[0]) s[5] -= d;
+        break;
+      }
+      case ln::kSubspaceBegin:
+        s[7] += now - s[1];
+        s[1] = now;
+        break;
+      case ln::kSubspaceEnd: s[8] += now - s[1]; break;
+      default: break;
+    }
+  }
+  __device__ static __forceinline__ void end(long long b, long long* probe) {
+    if (lane() != 0) return;
+    const long long* s = state();
+    long long* r = probe + b * kProbeFieldsB;
+    const long long now = clock64();
+    r[1] = globaltimer_ns();
+    r[0] = s[3];
+    r[2] = now - s[2];
+    for (int i = 3; i < kProbeFieldsB; ++i) r[i] = s[i + 1];
+  }
+  // The objective, each call marked as an evaluation.
+  template <class F>
+  struct Objective {
+    F f;
+    template <class X>
+    __device__ double operator()(X, const double* x, double* grad,
+                                 int n) const {
+      mark(ln::kEvalBegin);
+      const double fx = f(X{}, x, grad, n);
+      mark(ln::kEvalEnd);
+      return fx;
+    }
+  };
+};
+
 // A warp's doubles in shared memory: x [n], then its workspace.
 __host__ __device__ long long shared_stride(long long ws_bytes, int n) {
   return n + (ws_bytes + 7) / 8;
@@ -286,23 +376,30 @@ __global__ void __launch_bounds__(kBoundThreads, LBFGSPP_LBFGS_MIN_BLOCKS)
   W::end(b, probe...);
 }
 
-__global__ void __launch_bounds__(kBoundThreads, LBFGSPP_LBFGSB_MIN_BLOCKS)
+// W = Warp, or ProbedWarpB with Probe = long long* (the records).
+template <class W, class... Probe>
+__global__ void __launch_bounds__(kBoundThreads,
+                                  sizeof...(Probe) ? kProbedBoxMinBlocks
+                                                   : LBFGSPP_LBFGSB_MIN_BLOCKS)
     native_lbfgsb_batch(int builtin_id, long long batch, int n, double* xs,
                         const double* lb, const double* ub, ln::ParamsB p,
                         double* ws, long long stride, double* fx,
-                        double* pgnorm, int* niter, int* nfev, int* status) {
+                        double* pgnorm, int* niter, int* nfev, int* status,
+                        Probe... probe) {
+  W::begin();
   const Slot s = slot(batch, n, xs, ws, stride);
   if (s.x == nullptr) return;
   const long long b = s.b;
   const int st =
       builtin_id == 0
-          ? ln::minimize_b<Warp>(ln::Rosenbrock{}, n, s.x, lb + b * n,
-                                 ub + b * n, p, s.ws, fx + b, pgnorm + b,
-                                 niter + b, nfev + b)
-          : ln::minimize_b<Warp>(ln::Quadratic{}, n, s.x, lb + b * n,
-                                 ub + b * n, p, s.ws, fx + b, pgnorm + b,
-                                 niter + b, nfev + b);
+          ? ln::minimize_b<W>(typename W::template Objective<ln::Rosenbrock>{},
+                              n, s.x, lb + b * n, ub + b * n, p, s.ws, fx + b,
+                              pgnorm + b, niter + b, nfev + b)
+          : ln::minimize_b<W>(typename W::template Objective<ln::Quadratic>{},
+                              n, s.x, lb + b * n, ub + b * n, p, s.ws, fx + b,
+                              pgnorm + b, niter + b, nfev + b);
   finish(s, n, xs, ws == nullptr, st, status);
+  W::end(b, probe...);
 }
 
 // Allow the kernel `bytes` of dynamic shared memory a block (refused past
@@ -391,6 +488,29 @@ int launch_lbfgs(int builtin_id, long long batch, int n, double* xs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch native_lbfgsb_batch<W, Probe...> (lbfgspp_native_lbfgsb_batch).
+template <class W, class... Probe>
+int launch_lbfgsb(int builtin_id, long long batch, int n, double* xs,
+                  const double* lb, const double* ub, const ln::ParamsB* p,
+                  double* ws, long long stride, int warps, double* fx,
+                  double* pgnorm, int* niter, int* nfev, int* status,
+                  cudaStream_t stream, Probe... probe) {
+  if (batch <= 0) return 0;
+  if (warps < 1 || (sizeof...(Probe) > 0 && warps > kProbeWarps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = native_lbfgsb_batch<W, Probe...>;
+  long long bytes = 0;
+  if (ws == nullptr) {
+    const cudaError_t err = shared_launch_bytes(
+        kernel, ln::native_workspace_b(n, p->m, p->past), n, warps, &bytes,
+        &stride);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long grid = (batch + warps - 1) / warps;
+  kernel<<<static_cast<unsigned>(grid), warps * ln::kWarp, static_cast<size_t>(bytes), stream>>>(builtin_id, batch, n, xs, lb, ub, *p, ws, stride, fx, pgnorm, niter, nfev, status, probe...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -408,21 +528,24 @@ const char* lbfgspp_native_cuda_error_string(int err) {
 }
 
 // The launch plan of native_lbfgs_batch (kernel = 0), native_lbfgsb_batch
-// (1) or the probed native_lbfgs_batch (2) at (n, m, past) on the current
-// device: warps per block, blocks resident per SM, and the block's dynamic
-// shared memory (0: the workspace is a row of device memory).  Returns a
-// cudaError_t.
+// (1), the probed native_lbfgs_batch (2) or the probed native_lbfgsb_batch
+// (3) at (n, m, past) on the current device: warps per block, blocks
+// resident per SM, and the block's dynamic shared memory (0: the workspace
+// is a row of device memory).  Returns a cudaError_t.
 int lbfgspp_native_plan(int kernel, int n, int m, int past, int* warps,
                         int* blocks_per_sm, long long* shared_bytes) {
   const long long ws = ln::native_workspace(n, m, past);
+  const long long ws_b = ln::native_workspace_b(n, m, past);
   switch (kernel) {
     case 0: return static_cast<int>(plan(native_lbfgs_batch<Warp>, ws, n,
                                          warps, blocks_per_sm, shared_bytes));
-    case 1: return static_cast<int>(
-        plan(native_lbfgsb_batch, ln::native_workspace_b(n, m, past), n,
-             warps, blocks_per_sm, shared_bytes));
+    case 1: return static_cast<int>(plan(native_lbfgsb_batch<Warp>, ws_b, n,
+                                         warps, blocks_per_sm, shared_bytes));
     case 2: return static_cast<int>(
         plan(native_lbfgs_batch<ProbedWarp, long long*>, ws, n, warps,
+             blocks_per_sm, shared_bytes));
+    case 3: return static_cast<int>(
+        plan(native_lbfgsb_batch<ProbedWarpB, long long*>, ws_b, n, warps,
              blocks_per_sm, shared_bytes));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -461,18 +584,24 @@ int lbfgspp_native_lbfgsb_batch(int builtin_id, long long batch, int n,
                                 double* ws, long long stride, int warps,
                                 double* fx, double* pgnorm, int* niter,
                                 int* nfev, int* status, cudaStream_t stream) {
-  if (batch <= 0) return 0;
-  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  long long bytes = 0;
-  if (ws == nullptr) {
-    const cudaError_t err = shared_launch_bytes(
-        native_lbfgsb_batch, ln::native_workspace_b(n, p->m, p->past), n,
-        warps, &bytes, &stride);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long grid = (batch + warps - 1) / warps;
-  native_lbfgsb_batch<<<static_cast<unsigned>(grid), warps * ln::kWarp, static_cast<size_t>(bytes), stream>>>(builtin_id, batch, n, xs, lb, ub, *p, ws, stride, fx, pgnorm, niter, nfev, status);
-  return static_cast<int>(cudaGetLastError());
+  return launch_lbfgsb<Warp>(builtin_id, batch, n, xs, lb, ub, p, ws, stride,
+                             warps, fx, pgnorm, niter, nfev, status, stream);
+}
+
+// The same launch of the probed kernel (plan 3), which writes instance b's
+// record to probe[8 b .. 8 b + 7] (kProbeFieldsB).
+int lbfgspp_native_lbfgsb_batch_probed(int builtin_id, long long batch,
+                                       int n, double* xs, const double* lb,
+                                       const double* ub,
+                                       const ln::ParamsB* p, double* ws,
+                                       long long stride, int warps,
+                                       double* fx, double* pgnorm,
+                                       int* niter, int* nfev, int* status,
+                                       cudaStream_t stream,
+                                       long long* probe) {
+  return launch_lbfgsb<ProbedWarpB>(builtin_id, batch, n, xs, lb, ub, p, ws,
+                                    stride, warps, fx, pgnorm, niter, nfev,
+                                    status, stream, probe);
 }
 
 }  // extern "C"

@@ -131,13 +131,17 @@ LBFGSPP_HD inline T dmin(T a, T b) { return (b < a) ? b : a; }
 template <class T>
 LBFGSPP_HD inline T dmax(T a, T b) { return (a < b) ? b : a; }
 
-// The phase boundaries of an L-BFGS solve that X::mark names: the line
-// search's, the new direction's (the s/y pair, the curvature test, the
-// history's update and its two-loop product), and an objective
-// evaluation's, which minimize does not mark itself: a policy that times
-// them wraps the functor.
+// The phase boundaries of a solve that X::mark names: the line search's,
+// the new direction's (the s/y pair, the curvature test, the history's
+// update and its two-loop product; minimize_b marks none: its direction
+// runs from a search's end to the next search's begin), an objective
+// evaluation's, which the solves do not mark themselves (a policy that
+// times them wraps the functor), and, inside minimize_b's direction, the
+// generalized Cauchy point's begin, the subspace step's begin (the Cauchy
+// point's end) and the subspace step's end.
 enum Boundary { kSearchBegin, kSearchEnd, kDirectionBegin, kDirectionEnd,
-                kEvalBegin, kEvalEnd };
+                kEvalBegin, kEvalEnd, kCauchyBegin, kSubspaceBegin,
+                kSubspaceEnd };
 
 // The host policies (the card's, Warp, is in batch.cu).
 struct Serial {

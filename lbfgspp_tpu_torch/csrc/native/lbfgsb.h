@@ -803,7 +803,10 @@ LBFGSPP_HD LsResult morethuente_b(const F& f, Arena& ar, int max_linesearch,
 
 // Full L-BFGS-B solve (LBFGSB.h:117-262 semantics) on a workspace of
 // native_workspace_b(n, p.m, p.past) bytes.  Returns a Status code (on
-// every lane; lane 0 writes the outputs).
+// every lane; lane 0 writes the outputs).  X::mark brackets each search
+// and, inside the direction that runs from a search's end to the next
+// search's begin, the Cauchy point (up to the subspace step's begin) and
+// the subspace step.
 template <class X, class F>
 LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
                           const double* ub, const ParamsB& p, void* ws,
@@ -854,9 +857,11 @@ LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
       step_max = dmin(p.max_step, step_max);
       double step = dmin(1.0, step_max);
 
+      X::mark(kSearchBegin);
       const LsResult ls = morethuente_b<X>(
           f, ar, p.max_linesearch, p.min_step, p.ftol, p.wolfe, xp, drt,
           step_max, step, fx, x, grad, dg, n);
+      X::mark(kSearchEnd);
       nfev += ls.nfev;
       fx = ls.fx;
       if (ls.status != kRunning) {
@@ -891,9 +896,12 @@ LBFGSPP_HD int minimize_b(const F& f, int n, double* x, const double* lb,
         bfgs.add(vs, vy);
 
       force_bounds<X>(x, lb, ub, n);
+      X::mark(kCauchyBegin);
       cauchy_point(bfgs, x, grad, lb, ub, xcp, vecc, newact, fvset);
+      X::mark(kSubspaceBegin);
       subspace_minimize(bfgs, x, xcp, grad, lb, ub, newact, fvset,
                         p.max_submin, drt);
+      X::mark(kSubspaceEnd);
       ++k;
     }
   }

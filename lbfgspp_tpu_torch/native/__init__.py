@@ -38,18 +38,19 @@ call                                       ``device="cuda"`` (default)  ``device
 ``minimize(builtin, ...)``                 the kernel at B = 1          the host build (fastcall)
 ``minimize_b(builtin, ...)``               the box kernel at B = 1      the host build (fastcall)
 ``minimize_batch(builtin, x0s, ...)``      the kernel at B              the host build, threaded
+``minimize_b_batch(builtin, x0s, ...)``    the box kernel at B          the host build, threaded
 ``minimize`` / ``minimize_b``, a callable  ``ValueError``               the host build (ctypes)
 =========================================  ==========================  =============================
 
 While a ``torch.profiler`` records (or inside :func:`probing`), a card
-launch of ``native_lbfgs_batch`` takes the probed build of the kernel:
-the same solve, whose lane 0 also clocks each instance's phases (the
-objective's evaluations, the line search without them, the new
-direction, and the whole slot in SM cycles and ``%globaltimer``
-nanoseconds).  Each such launch leaves one summary, read by
-:func:`probe_records`.  The card path of :func:`native_lbfgs_batch` and
-:func:`minimize_batch`, from the call to the C launch's return, is the
-profiler span ``lbfgspp.native.launch``.
+launch of either kernel takes its probed build: the same solve, whose
+lane 0 also clocks each instance's phases (the objective's evaluations,
+the line search without them, the new direction, the box solve's Cauchy
+points and subspace steps inside it, and the whole slot in SM cycles and
+``%globaltimer`` nanoseconds).  Each such launch leaves one summary, read
+by :func:`probe_records`.  The card path of both kernels' wrappers and of
+:func:`minimize_batch` and :func:`minimize_b_batch`, from the call to the
+C launch's return, is the profiler span ``lbfgspp.native.launch``.
 
 A Python callable ``f(x) -> (fx, grad)`` gets an f64 CPU tensor; it needs
 ``device="cpu"`` (for an objective that runs on the card, use
@@ -238,6 +239,9 @@ def _typed_device(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lbfgspp_native_lbfgsb_batch.argtypes = [
             i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p]
         lib.lbfgspp_native_lbfgsb_batch.restype = i
+        lib.lbfgspp_native_lbfgsb_batch_probed.argtypes = [
+            i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p, p]
+        lib.lbfgspp_native_lbfgsb_batch_probed.restype = i
         lib.lbfgspp_native_plan.argtypes = [i, i, i, i, p, p, p]
         lib.lbfgspp_native_plan.restype = i
         for fn in (lib.lbfgspp_native_workspace,
@@ -402,10 +406,9 @@ def plan(box: bool, n: int, params, device="cuda",
     block, blocks resident per SM and the block's shared memory (0 when
     the workspace is in device memory).  ``lib``: a build of its own
     (``tools/native_study.py``'s register caps)."""
-    if box and probed:
-        raise ValueError("native_lbfgsb_batch has no probed build")
     dev = torch.device(device)
-    return _plan(lib or _device_lib(), 1 if box else 2 if probed else 0, n,
+    # batch.cu's kernel ids: 0, 1 the default kernels, 2, 3 the probed
+    return _plan(lib or _device_lib(), int(box) + 2 * int(probed), n,
                  params.m, params.past,
                  torch.cuda.current_device() if dev.index is None
                  else dev.index)
@@ -416,10 +419,10 @@ def _launch(lib: ctypes.CDLL, box: bool, bid: int, xs: Tensor, params,
             ub: Optional[Tensor] = None, warps: Optional[int] = None,
             probe: Optional[Tensor] = None) -> Plan:
     """Launch a build's native kernel on ``xs``'s device with the plan's
-    warps per block (or ``warps``) and its workspace placement, the
-    probed ``native_lbfgs_batch`` when given ``probe`` (int64 ``[B, 6]``,
-    :data:`PROBE_FIELDS`); raises if the card refuses the launch.
-    Returns the plan."""
+    warps per block (or ``warps``) and its workspace placement, its probed
+    build when given ``probe`` (int64 ``[B, 6]``, :data:`PROBE_FIELDS`;
+    ``box``: ``[B, 8]``, :data:`PROBE_FIELDS_B`); raises if the card
+    refuses the launch.  Returns the plan."""
     batch, n = xs.shape
     pl = plan(box, n, params, xs.device, lib, probed=probe is not None)
     ws, stride = None, 0
@@ -434,10 +437,12 @@ def _launch(lib: ctypes.CDLL, box: bool, bid: int, xs: Tensor, params,
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         if box:
-            err = lib.lbfgspp_native_lbfgsb_batch(
-                bid, batch, n, xs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-                ctypes.addressof(_cparams_b(params)), wsp, stride, w,
-                *(t.data_ptr() for t in out), stream)
+            args = (bid, batch, n, xs.data_ptr(), lb.data_ptr(),
+                    ub.data_ptr(), ctypes.addressof(_cparams_b(params)), wsp,
+                    stride, w, *(t.data_ptr() for t in out), stream)
+            err = lib.lbfgspp_native_lbfgsb_batch(*args) if probe is None \
+                else lib.lbfgspp_native_lbfgsb_batch_probed(
+                    *args, probe.data_ptr())
         else:
             args = (bid, batch, n, xs.data_ptr(),
                     ctypes.addressof(_cparams(params)), ls, wsp, stride, w,
@@ -483,27 +488,34 @@ def native_lbfgs_batch(fun: str, xs: Tensor, params: LBFGSParams,
     return out
 
 
-def _card_batch(rows: Callable[[], Tensor], fun: str, params: LBFGSParams,
-                line_search: str, threads: Optional[int],
-                contract: bool) -> tuple:
-    """:func:`native_lbfgs_batch` on the card, on the rows ``rows()``
-    makes: the span :data:`LAUNCH_SPAN` from the call to the C launch's
-    return, then, when the launch was probed, its summary (enqueued after
-    the kernel, outside the span).  Returns ``(xs, outputs)``."""
+def _card_batch(rows: Callable[[], Tensor], fun: str, params,
+                line_search: Optional[str], threads: Optional[int],
+                contract: bool, bounds: Optional[Callable] = None) -> tuple:
+    """:func:`native_lbfgs_batch` on the card, or with ``bounds``
+    :func:`native_lbfgsb_batch`, on the rows ``rows()`` makes and the boxes
+    ``bounds(rows) -> (lb, ub)`` makes: the span :data:`LAUNCH_SPAN` from
+    the call to the C launch's return, then, when the launch was probed,
+    its summary (enqueued after the kernel, outside the span).  Returns
+    ``(xs, outputs)``."""
+    box = bounds is not None
+    kernel = native_lbfgsb_batch if box else native_lbfgs_batch
     t0 = time.perf_counter_ns()
     with torch.profiler.record_function(LAUNCH_SPAN):
         xs = rows()
-        _check_rows(xs, "native_lbfgs_batch")
+        boxes = dict(zip(("lb", "ub"), bounds(xs))) if box else {}
+        _check_rows(xs, kernel.__name__, *boxes.items())
         batch, n = xs.shape
-        bid, ls = _builtin_id(fun, n), _ls_kind(line_search)
+        bid = _builtin_id(fun, n)
+        ls = 0 if box else _ls_kind(line_search)
         _threads(threads, xs.device)
         out = _outputs(batch, xs.device)
-        probe = _probe_buffer(batch, xs.device) if is_probing() else None
-        pl = _launch(_device_lib(contract), False, bid, xs, params, ls, out,
-                     probe=probe)
-        native_lbfgs_batch.launches += 1
+        probe = _probe_buffer(batch, xs.device, box) if is_probing() \
+            else None
+        pl = _launch(_device_lib(contract), box, bid, xs, params, ls, out,
+                     probe=probe, **boxes)
+        kernel.launches += 1
     if probe is not None:
-        _keep_probe(probe, pl, xs.device, time.perf_counter_ns() - t0)
+        _keep_probe(probe, pl, xs.device, time.perf_counter_ns() - t0, box)
     return xs, out
 
 
@@ -516,25 +528,24 @@ def native_lbfgsb_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
     ``, niter, nfev, status [B]``.
 
     A CUDA tensor launches ``native_lbfgsb_batch`` (csrc/native/batch.cu;
-    one warp per instance), counted in ``native_lbfgsb_batch.launches``;
-    a CPU tensor takes the host build's threaded batch, as
-    :func:`native_lbfgs_batch` does, and ``contract`` is its
-    (:func:`_lanes_b_batch` is the card's witness)."""
+    one warp per instance; probed while :func:`is_probing`), counted in
+    ``native_lbfgsb_batch.launches``; a CPU tensor takes the host build's
+    threaded batch, as :func:`native_lbfgs_batch` does, and ``contract``
+    is its (:func:`_lanes_b_batch` is the card's witness)."""
+    if xs.device.type == "cuda":
+        return _card_batch(lambda: xs, fun, params, None, threads, contract,
+                           lambda _: (lb, ub))[1]
     _check_rows(xs, "native_lbfgsb_batch", ("lb", lb), ("ub", ub))
     batch, n = xs.shape
     bid = _builtin_id(fun, n)
     nthreads = _threads(threads, xs.device)
-    out = _outputs(batch, xs.device)
-    if xs.device.type == "cpu":
-        _host(contract).lbfgspp_native_minimize_b_batch(
-            bid, n, batch, xs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-            ctypes.addressof(_cparams_b(params)),
-            *(t.data_ptr() for t in out), nthreads)
-        return out
-    if xs.device.type != "cuda":
+    if xs.device.type != "cpu":
         raise ValueError(f"native_lbfgsb_batch: no kernel for {xs.device}")
-    _launch(_device_lib(contract), True, bid, xs, params, 0, out, lb, ub)
-    native_lbfgsb_batch.launches += 1
+    out = _outputs(batch, xs.device)
+    _host(contract).lbfgspp_native_minimize_b_batch(
+        bid, n, batch, xs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+        ctypes.addressof(_cparams_b(params)), *(t.data_ptr() for t in out),
+        nthreads)
     return out
 
 
@@ -573,7 +584,7 @@ def _lanes_b_batch(fun: str, xs: Tensor, lb: Tensor, ub: Tensor,
 # The probe
 # ---------------------------------------------------------------------------
 
-# the host span of a card launch of native_lbfgs_batch
+# the host span of a card launch of either kernel
 LAUNCH_SPAN = "lbfgspp.native.launch"
 # the probed kernel's record of an instance (csrc/native/batch.cu): its
 # %globaltimer at the entry into its warp slot and after its outputs, then
@@ -581,22 +592,28 @@ LAUNCH_SPAN = "lbfgspp.native.launch"
 # without them, the new direction
 PROBE_FIELDS = ("start_ns", "end_ns", "total", "eval", "search",
                 "direction")
+# the probed native_lbfgsb_batch's record: those, then the SM cycles of the
+# Cauchy points and of the subspace steps (both inside the directions')
+PROBE_FIELDS_B = PROBE_FIELDS + ("cauchy", "subspace")
 # a probed launch's summary (probe_records): its batch, the card's resident
 # warp slots under the probed plan (SMs x blocks an SM x warps a block),
 # the launch's span (last end_ns - first start_ns), the sum of end_ns -
-# start_ns, the sums of the cycle fields, and the host span's nanoseconds
+# start_ns, the sums of the cycle fields, and the host span's nanoseconds;
+# besides, ``kernel`` ("lbfgs" or "lbfgsb")
 SUMMARY_FIELDS = ("batch", "slots", "span_ns", "busy_ns", "total", "eval",
                   "search", "direction", "host_ns")
+# a probed box launch's: the Cauchy points' and subspace steps' cycles too
+SUMMARY_FIELDS_B = SUMMARY_FIELDS[:-1] + ("cauchy", "subspace", "host_ns")
 
 _PROBING: list = [None]     # probing()'s setting; None: follow the profiler
-_RECORDS: list = []         # (device summary, batch, slots, host_ns)
-_PROBE_BUFFERS: dict = {}   # device -> the last launch's int64 [B, 6]
+_RECORDS: list = []         # (device summary, batch, slots, host_ns, box)
+_PROBE_BUFFERS: dict = {}   # (device, box) -> the last launch's records
 
 
 @contextlib.contextmanager
 def probing(on: bool = True):
-    """Within the block, card launches of ``native_lbfgs_batch`` take the
-    probed kernel (``on``) or the default one, whether a profiler records
+    """Within the block, card launches of the native kernels take their
+    probed builds (``on``) or the default ones, whether a profiler records
     or not."""
     prev = _PROBING[0]
     _PROBING[0] = bool(on)
@@ -614,43 +631,54 @@ def is_probing() -> bool:
     return torch.autograd._profiler_enabled() if on is None else on
 
 
-def _probe_buffer(batch: int, device) -> Tensor:
-    """The records' buffer of a launch: the device's last one while the
-    batch size holds (the launches of a stream reuse it in turn, each
-    reduced before the next writes it), else a new one."""
-    key = str(device)
+def _probe_buffer(batch: int, device, box: bool = False) -> Tensor:
+    """The records' buffer of a launch of a kernel (``box``): the device's
+    last one for that kernel while the batch size holds (the launches of a
+    stream reuse it in turn, each reduced before the next writes it), else
+    a new one."""
+    key = (str(device), box)
     buf = _PROBE_BUFFERS.get(key)
     if buf is None or buf.shape[0] != batch:
         buf = _PROBE_BUFFERS[key] = torch.empty(
-            batch, len(PROBE_FIELDS), dtype=torch.int64, device=device)
+            batch, len(PROBE_FIELDS_B if box else PROBE_FIELDS),
+            dtype=torch.int64, device=device)
     return buf
 
 
 def probe_summary(probe: Tensor) -> Tensor:
-    """The records ``probe [B, 6]`` reduced on their device, with no sync:
-    int64 ``[span_ns, busy_ns, total, eval, search, direction]``
-    (:data:`SUMMARY_FIELDS` 2-7)."""
+    """The records ``probe [B, 6]`` (or a box launch's ``[B, 8]``) reduced
+    on their device, with no sync: int64 ``[span_ns, busy_ns, total, eval,
+    search, direction]`` (:data:`SUMMARY_FIELDS` 2-7; then ``cauchy,
+    subspace``)."""
     start, end = probe[:, 0], probe[:, 1]
     return torch.cat([(end.max() - start.min()).reshape(1),
                       (end - start).sum().reshape(1), probe[:, 2:].sum(0)])
 
 
-def _keep_probe(probe: Tensor, pl: Plan, device, host_ns: int) -> None:
+def _keep_probe(probe: Tensor, pl: Plan, device, host_ns: int,
+                box: bool = False) -> None:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     _RECORDS.append((probe_summary(probe), probe.shape[0],
-                     sms * pl.blocks_per_sm * pl.warps, host_ns))
+                     sms * pl.blocks_per_sm * pl.warps, host_ns, box))
 
 
 def probe_records() -> list:
     """Each probed launch's summary since :func:`reset_counts`, oldest
-    first, as a dict of :data:`SUMMARY_FIELDS` (cycles are SM cycles, the
-    rest nanoseconds); waits once for the card."""
+    first, as a dict of :data:`SUMMARY_FIELDS` (a box launch's:
+    :data:`SUMMARY_FIELDS_B`; cycles are SM cycles, the rest nanoseconds)
+    and its ``kernel``, ``"lbfgs"`` or ``"lbfgsb"``; waits once for the
+    card."""
     if not _RECORDS:
         return []
     dev = _RECORDS[0][0].device
-    rows = torch.stack([r[0].to(dev) for r in _RECORDS]).tolist()
-    return [dict(zip(SUMMARY_FIELDS, (b, slots, *row, host)))
-            for row, (_, b, slots, host) in zip(rows, _RECORDS)]
+    flat = torch.cat([r[0].to(dev) for r in _RECORDS]).tolist()
+    out, at = [], 0
+    for summary, b, slots, host, box in _RECORDS:
+        row, at = flat[at:at + len(summary)], at + len(summary)
+        out.append(dict(zip(SUMMARY_FIELDS_B if box else SUMMARY_FIELDS,
+                            (b, slots, *row, host)),
+                        kernel="lbfgsb" if box else "lbfgs"))
+    return out
 
 
 def reset_counts() -> None:
@@ -823,9 +851,49 @@ def minimize_batch(fun: str,
     return NativeBatchResult(xs, out.fx, out.niter, out.nfev, out.status)
 
 
+def minimize_b_batch(fun: str,
+                     x0s,
+                     lb,
+                     ub,
+                     params: LBFGSBParams = LBFGSBParams(),
+                     threads: Optional[int] = None,
+                     device=None) -> NativeBatchResult:
+    """Box-constrained multistart batch over a builtin objective: ``x0s
+    [B, n]``, each row an independent solve over its box, equal to its
+    :func:`minimize_b`.  ``lb``, ``ub``: ``[n]`` (every row's box) or ``[B,
+    n]``; entries may be ``+/-inf``, and ``lb[i] == ub[i]`` pins a
+    coordinate.
+
+    On the card one launch of ``native_lbfgsb_batch`` solves the batch, a
+    warp per instance; on the host the solves fan out over ``threads`` OS
+    threads as in :func:`minimize_batch`, which also refuses callables."""
+    if not isinstance(fun, str):
+        raise TypeError("minimize_b_batch supports builtin objectives only "
+                        "(Python callbacks serialize on the interpreter "
+                        "lock); use lbfgspp_tpu_torch.minimize_b_batched")
+    dev = resolve_device(device)
+
+    def rows():
+        xs = _f64(x0s, dev)
+        if xs.dim() != 2:
+            raise ValueError("x0s must be [batch, n]")
+        return xs
+
+    def bounds(xs):
+        return _f64(lb, dev, xs.shape), _f64(ub, dev, xs.shape)
+
+    if dev.type == "cuda":
+        xs, out = _card_batch(rows, fun, params, None, threads, True, bounds)
+    else:
+        xs = rows()
+        out = native_lbfgsb_batch(fun, xs, *bounds(xs), params, threads)
+    return NativeBatchResult(xs, out.fx, out.niter, out.nfev, out.status)
+
+
 __all__ = ["BUILTIN_OBJECTIVES", "LAUNCH_SPAN", "LS_KINDS", "NativeResult",
-           "NativeBatchResult", "PROBE_FIELDS", "Plan", "SUMMARY_FIELDS",
-           "available", "build_error", "fast_error", "is_probing",
-           "minimize", "minimize_b", "minimize_batch", "native_lbfgs_batch",
+           "NativeBatchResult", "PROBE_FIELDS", "PROBE_FIELDS_B", "Plan",
+           "SUMMARY_FIELDS", "SUMMARY_FIELDS_B", "available", "build_error",
+           "fast_error", "is_probing", "minimize", "minimize_b",
+           "minimize_b_batch", "minimize_batch", "native_lbfgs_batch",
            "native_lbfgsb_batch", "plan", "probe_records", "probe_summary",
            "probing", "reset_counts", "build"]

@@ -1,28 +1,32 @@
 #!/usr/bin/env python3
-"""The probe of ``native_lbfgs_batch`` on one NVIDIA GPU: what it costs,
+"""The probe of the native kernels on one NVIDIA GPU: what it costs,
 whether it changes an answer, and whether its clocks agree with the
 profiler's.
 
     python3 -m lbfgspp_tpu_torch.tools.native_probe_study [--batch 120000] \
-        [--reps 5] [--traced 3]
+        [--reps 5] [--traced 3] [--box]
 
 Builds the card library and prints ptxas's lines for both instantiations
-of ``native_lbfgs_batch`` and their plans.  Then, at the benchmark's
-multistart shape (``--batch`` Rosenbrock starts uniform in [-2, 2]^100
-from seed 0, m = 6, ``max_linesearch`` 256, ``max_iterations`` 400), for
-the Nocedal-Wright and the bracketing search: times the default and the
-probed kernel with CUDA events, in turns (default, probed, probed,
-default, ``--reps`` times), holds the probed outputs bit for bit against
-the default's, prints each probed launch's summary as shares (eval,
-search, direction, other), slot use and SM clock, and profiles the last
-launch's occupancy from its records: the most instances in their slots
-at once, the mean over the launch and over its middle half, how long the
-count took to reach its most (the ramp) and how long it stayed below the
-middle's mean at the end (the tail).
-Last, ``--traced`` launches under ``torch.profiler``: the sum of the
-probe's launch spans (``%globaltimer``) over the trace's device time of
-the kernel (CUPTI's clock), and the host span ``lbfgspp.native.launch``'s
-mean length.  The last line is a JSON summary.
+of ``native_lbfgs_batch`` (``--box``: ``native_lbfgsb_batch``) and their
+plans.  Then, at the benchmark's multistart shape (``--batch`` Rosenbrock
+starts uniform in [-2, 2]^100 from seed 0, m = 6, ``max_linesearch`` 256,
+``max_iterations`` 400), for the Nocedal-Wright and the bracketing search,
+or with ``--box`` at the box cell's (starts uniform in [2, 4]^10, every
+coordinate in [2, 4] but x[2], unbounded; m = 6, epsilon 1e-6,
+``max_iterations`` 60): times the default and the probed kernel with CUDA
+events, in turns (default, probed, probed, default, ``--reps`` times),
+holds the probed outputs bit for bit against the default's, prints each
+probed launch's summary as shares (eval, search, direction, other; the
+box kernel's Cauchy points and subspace steps besides, inside direction),
+slot use and SM clock, and profiles the last launch's occupancy from its
+records: the most instances in their slots at once, the mean over the
+launch and over its middle half, how long the count took to reach its
+most (the ramp) and how long it stayed below the middle's mean at the end
+(the tail).  Last, ``--traced`` launches under ``torch.profiler``: the sum
+of the probe's launch spans (``%globaltimer``) over the trace's device
+time of the kernel (CUPTI's clock), and the host span
+``lbfgspp.native.launch``'s mean length.  The last line is a JSON
+summary.
 """
 
 from __future__ import annotations
@@ -35,14 +39,14 @@ import subprocess
 import numpy as np
 import torch
 
-from lbfgspp_tpu_torch import LBFGSParams, native
+from lbfgspp_tpu_torch import LBFGSBParams, LBFGSParams, native
 from lbfgspp_tpu_torch.tools.native_study import event_ms, ptxas_lines, \
     same_bits
 from lbfgspp_tpu_torch.utils import cuda_build
 
 N, M, TRIALS, ITERS = 100, 6, 256, 400
 SEARCHES = ("nocedalwright", "bracketing")
-KERNEL = "native_lbfgs_batch"
+BOX_N, BOX_ITERS, BOX_EPSILON = 10, 60, 1e-6
 
 
 def shares(rec: dict) -> dict:
@@ -50,6 +54,9 @@ def shares(rec: dict) -> dict:
     out = {k: 100.0 * rec[k] / rec["total"]
            for k in ("eval", "search", "direction")}
     out["other"] = 100.0 - sum(out.values())
+    for k in ("cauchy", "subspace"):
+        if k in rec:
+            out[k] = 100.0 * rec[k] / rec["total"]
     out["slot_use"] = 100.0 * rec["busy_ns"] / (rec["slots"] *
                                                 rec["span_ns"])
     out["sm_ghz"] = rec["total"] / rec["busy_ns"]
@@ -93,14 +100,41 @@ def card_line() -> str:
         return torch.cuda.get_device_name(0)
 
 
-def kernel_device_s(prof) -> float:
-    """The trace's device time of the kernel, seconds."""
+def kernel_device_s(prof, kernel: str) -> float:
+    """The trace's device time of ``kernel``, seconds."""
     total = 0.0
     for e in prof.key_averages():
-        if KERNEL in e.key:
+        if kernel in e.key:
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
     return total / 1e6
+
+
+def _cases(box: bool, batch: int, dev):
+    """The study's launches: ``(params, {label: (run(xs), traced(x0))},
+    starts)``, ``run`` the kernel's wrapper on ``xs`` in place and
+    ``traced`` the public batch call."""
+    if not box:
+        p = LBFGSParams(m=M, max_linesearch=TRIALS, max_iterations=ITERS)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            -2, 2, (batch, N)), device=dev)
+        return p, {ls: (
+            lambda xs, ls=ls: native.native_lbfgs_batch("rosenbrock", xs, p,
+                                                        ls),
+            lambda x0, ls=ls: native.minimize_batch("rosenbrock", x0, p, ls,
+                                                    device=dev))
+            for ls in SEARCHES}, x0
+    p = LBFGSBParams(m=M, epsilon=BOX_EPSILON, max_iterations=BOX_ITERS)
+    lo = torch.full((BOX_N,), 2.0, dtype=torch.float64, device=dev)
+    hi = torch.full_like(lo, 4.0)
+    lo[2], hi[2] = -np.inf, np.inf
+    lb, ub = (t.expand(batch, BOX_N).contiguous() for t in (lo, hi))
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        2, 4, (batch, BOX_N)), device=dev)
+    return p, {"box": (
+        lambda xs: native.native_lbfgsb_batch("rosenbrock", xs, lb, ub, p),
+        lambda x0: native.minimize_b_batch("rosenbrock", x0, lo, hi, p,
+                                           device=dev))}, x0
 
 
 def main(argv=None) -> int:
@@ -108,57 +142,58 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=120000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--traced", type=int, default=3)
+    ap.add_argument("--box", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("native_probe_study needs an NVIDIA GPU")
     dev = torch.device("cuda")
+    kernel = "native_lbfgsb_batch" if args.box else "native_lbfgs_batch"
     print(f"{card_line()}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     native.build(dev)
     for line in ptxas_lines(cuda_build.build_logs.get("native_batch", "")):
-        if KERNEL in line:
+        if kernel in line:
             print(f"ptxas {line}", flush=True)
-    p = LBFGSParams(m=M, max_linesearch=TRIALS, max_iterations=ITERS)
-    plans = {k: native.plan(False, N, p, dev, probed=k == "probed")
+    p, cases, x0 = _cases(args.box, args.batch, dev)
+    plans = {k: native.plan(args.box, x0.shape[1], p, dev,
+                            probed=k == "probed")
              for k in ("default", "probed")}
     print(f"plans {plans}", flush=True)
-    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
-        -2, 2, (args.batch, N)), device=dev)
     summary = dict(device=card_line(), batch=args.batch,
                    plans={k: list(v) for k, v in plans.items()})
 
-    def run(ls, probed):
-        xs = x0.clone()
-        out = []
-        with native.probing(probed):
-            ms = event_ms(lambda: out.append(
-                native.native_lbfgs_batch("rosenbrock", xs, p, ls)))
-        return ms, xs, out[0]
+    for label, (launch, traced_call) in cases.items():
+        def run(probed):
+            xs = x0.clone()
+            out = []
+            with native.probing(probed):
+                ms = event_ms(lambda: out.append(launch(xs)))
+            return ms, xs, out[0]
 
-    for ls in SEARCHES:
-        run(ls, False)
-        run(ls, True)
+        run(False)
+        run(True)
         native.reset_counts()
         times = {"default": [], "probed": []}
         for _ in range(args.reps):
             for probed in (False, True, True, False):
                 times["probed" if probed else "default"].append(
-                    run(ls, probed)[0])
+                    run(probed)[0])
         recs = native.probe_records()
-        _, xd, od = run(ls, False)
-        _, xp, op = run(ls, True)
+        _, xd, od = run(False)
+        _, xp, op = run(True)
         bits = same_bits(xd, od, xp, op)
-        occ = occupancy(native._probe_buffer(args.batch, xp.device))
+        occ = occupancy(native._probe_buffer(args.batch, xp.device,
+                                             args.box))
         med = {k: statistics.median(v) for k, v in times.items()}
         cost = 100.0 * (med["probed"] / med["default"] - 1.0)
         per = [shares(r) for r in recs]
-        print(f"{ls}: kernel ms default {times['default']} probed "
+        print(f"{label}: kernel ms default {times['default']} probed "
               f"{times['probed']}; medians {med}; probe cost {cost:+.3f}%; "
               f"probed = default bit for bit {bits}", flush=True)
         for r, s in zip(recs, per):
-            print(f"{ls}: record {r} -> " + ", ".join(
+            print(f"{label}: record {r} -> " + ", ".join(
                 f"{k} {v:.4f}" for k, v in s.items()), flush=True)
-        print(f"{ls}: occupancy of {recs[0]['slots']} slots: {occ}",
+        print(f"{label}: occupancy of {recs[0]['slots']} slots: {occ}",
               flush=True)
 
         native.reset_counts()
@@ -166,17 +201,17 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(args.traced):
-                native.minimize_batch("rosenbrock", x0, p, ls, device=dev)
+                traced_call(x0)
             torch.cuda.synchronize()
         traced = native.probe_records()
         span_s = sum(r["span_ns"] for r in traced) / 1e9
-        dev_s = kernel_device_s(prof)
+        dev_s = kernel_device_s(prof, kernel)
         host_ms = statistics.mean(r["host_ns"] for r in traced) / 1e6
-        print(f"{ls}: traced {len(traced)} launches: probe spans "
-              f"{span_s!r} s, trace's {KERNEL} {dev_s!r} s, ratio "
+        print(f"{label}: traced {len(traced)} launches: probe spans "
+              f"{span_s!r} s, trace's {kernel} {dev_s!r} s, ratio "
               f"{100.0 * span_s / dev_s:.3f}%; host span mean "
               f"{host_ms!r} ms", flush=True)
-        summary[ls] = dict(
+        summary[label] = dict(
             ms=med, cost_pct=cost, bits=bits, occupancy=occ,
             shares={k: statistics.median(s[k] for s in per) for k in per[0]},
             clocks_pct=100.0 * span_s / dev_s, host_ms=host_ms)

@@ -773,6 +773,71 @@ def test_native_probed_kernel_equals_default(cuda, ls):
     assert rec["host_ns"] > 0
 
 
+def _box_cell_inputs(batch, device):
+    """The box cell's problem: starts uniform in [2, 4]^10 and [n] bounds,
+    every coordinate in [2, 4] but x[2], unbounded."""
+    x0 = torch.as_tensor(np.random.default_rng(10).uniform(2, 4, (batch, 10)),
+                         device=device)
+    lo = torch.full((10,), 2.0, dtype=torch.float64, device=device)
+    hi = torch.full_like(lo, 4.0)
+    lo[2], hi[2] = -np.inf, np.inf
+    return x0, lo, hi, lt.LBFGSBParams(m=6, epsilon=1e-6, max_iterations=60)
+
+
+def test_native_probed_box_kernel_equals_default(cuda):
+    """The box cell's problem at B=4096 through the probed box kernel
+    (native.probing) and the default one: x and every output bit for bit,
+    the same plan (kernel id 3 as 1), and one summary of kernel "lbfgsb"
+    whose Cauchy points and subspace steps fit in its directions' cycles
+    and whose phases fit in the slots' cycles."""
+    x0, lo, hi, p = _box_cell_inputs(4096, cuda)
+    lb, ub = (t.expand(4096, 10).contiguous() for t in (lo, hi))
+    pl = native.plan(True, 10, p, cuda)
+    assert native.plan(True, 10, p, cuda, probed=True) == pl
+    native.reset_counts()
+    xd, xp = x0.clone(), x0.clone()
+    with native.probing(False):
+        od = native.native_lbfgsb_batch("rosenbrock", xd, lb, ub, p)
+    assert native.probe_records() == []
+    with native.probing():
+        op = native.native_lbfgsb_batch("rosenbrock", xp, lb, ub, p)
+    _same_bits(xd, od, xp, op)
+    (rec,) = native.probe_records()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert rec["kernel"] == "lbfgsb" and rec["batch"] == 4096
+    assert rec["slots"] == sms * pl.blocks_per_sm * pl.warps
+    assert 0 < rec["cauchy"] and 0 < rec["subspace"]
+    assert rec["cauchy"] + rec["subspace"] <= rec["direction"]
+    assert rec["eval"] + rec["search"] + rec["direction"] <= rec["total"]
+    assert 0 < rec["busy_ns"] <= rec["slots"] * rec["span_ns"]
+    assert 1.0 < rec["total"] / rec["busy_ns"] < 2.0
+    assert native.native_lbfgsb_batch.launches == 2
+
+
+def test_native_minimize_b_batch_is_the_box_kernel(cuda):
+    """minimize_b_batch on the card with [n] bounds: one launch of the box
+    kernel, bit for bit native_lbfgsb_batch on the same rows and the bounds
+    broadcast to [B, n]; the caller's starts untouched; the cell's bar
+    met by nearly every instance."""
+    x0, lo, hi, p = _box_cell_inputs(4096, cuda)
+    keep = x0.clone()
+    native.reset_counts()
+    res = native.minimize_b_batch("rosenbrock", x0, lo, hi, p, device=cuda)
+    assert native.native_lbfgsb_batch.launches == 1
+    assert torch.equal(x0, keep)
+    xs = x0.clone()
+    out = native.native_lbfgsb_batch("rosenbrock", xs,
+                                     lo.expand(4096, 10).contiguous(),
+                                     hi.expand(4096, 10).contiguous(), p)
+    for a, b in zip((res.x, res.fx, res.niter, res.nfev, res.status),
+                    (xs, out.fx, out.niter, out.nfev, out.status)):
+        assert torch.equal(a, b)
+    xstar = torch.tensor([2, 4, 1.4136961582637277, 2, 2, 4, 2, 4, 2, 4],
+                         dtype=torch.float64, device=cuda)
+    assert ((res.x - xstar).abs().max(1).values <= 1e-4).double().mean() \
+        >= 0.99
+
+
 def test_native_launch_with_too_many_warps_raises(cuda):
     """A block of 64 warps (2048 threads) is refused by the card; the
     wrapper raises, counts no launch and leaves x as it was: nothing falls

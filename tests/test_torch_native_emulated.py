@@ -31,10 +31,11 @@ out of it (status -1, which no JAX status shares).  The cases run with the
 workspace in device memory (two warps a block) and in shared memory (three
 warps a block, the last block ragged), at n = 10 (22 of 32 lanes idle) and
 at n = 37 on the builtin quadratic (the last lane group ragged).  Every
-L-BFGS run is made again through the probed kernel
-(``lbfgspp_native_lbfgs_batch_probed``, two warps a block, as many as its
-probe state has rows): the same bits, and a record per instance whose
-phases fit inside its slot's time.
+run is made again through its kernel's probed build
+(``lbfgspp_native_lbfgs_batch_probed``, ``lbfgspp_native_lbfgsb_batch_probed``,
+two warps a block, as many as the probe state has rows): the same bits,
+and a record per instance whose phases fit inside its slot's time (the
+box record's Cauchy points and subspace steps inside its directions).
 
 What this cannot show: that nvcc accepts the source, or the card's own
 arithmetic (``chip_smoke.py`` phase 26 and ``tests/test_torch_cuda.py``
@@ -350,6 +351,8 @@ def _main(lib_path):
         i, ll, i, p, p, i, p, ll, i, p, p, p, p, p, p, p]
     lib.lbfgspp_native_lbfgsb_batch.argtypes = [
         i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p]
+    lib.lbfgspp_native_lbfgsb_batch_probed.argtypes = [
+        i, ll, i, p, p, p, p, p, ll, i, p, p, p, p, p, p, p]
     lib.lbfgspp_native_plan.argtypes = [i, i, i, i, p, p, p]
     lib.emu_canary_fault_count.restype = ll
     for fn in (lib.lbfgspp_native_workspace, lib.lbfgspp_native_workspace_b):
@@ -386,20 +389,26 @@ def _main(lib_path):
             "canaries": bool(ws[:, stride:].isnan().all()) and
             lib.emu_canary_fault_count() == faults,
             **{k: v.tolist() for k, v in outs._asdict().items()}}
-        if box:
-            continue
         # the same launch through the probed kernel, on a fresh workspace
         x = torch.tensor(x0)
         ws.fill_(np.nan)
         outs = native._outputs(BATCH, "cpu")
-        probe = torch.full((BATCH, len(native.PROBE_FIELDS)), -1,
+        probe = torch.full((BATCH, len(native.PROBE_FIELDS_B if box else
+                                       native.PROBE_FIELDS)), -1,
                            dtype=torch.int64)
         faults = lib.emu_canary_fault_count()
-        err = lib.lbfgspp_native_lbfgs_batch_probed(
-            bid, BATCH, n, x.data_ptr(),
-            ctypes.addressof(native._cparams(prm)), native.LS_KINDS[ls],
-            wsp, st, min(warps, PROBED_WARPS), *(t.data_ptr() for t in outs),
-            None, probe.data_ptr())
+        if box:
+            err = lib.lbfgspp_native_lbfgsb_batch_probed(
+                bid, BATCH, n, x.data_ptr(), lbt.data_ptr(), ubt.data_ptr(),
+                ctypes.addressof(native._cparams_b(prm)), wsp, st,
+                min(warps, PROBED_WARPS), *(t.data_ptr() for t in outs),
+                None, probe.data_ptr())
+        else:
+            err = lib.lbfgspp_native_lbfgs_batch_probed(
+                bid, BATCH, n, x.data_ptr(),
+                ctypes.addressof(native._cparams(prm)), native.LS_KINDS[ls],
+                wsp, st, min(warps, PROBED_WARPS),
+                *(t.data_ptr() for t in outs), None, probe.data_ptr())
         out["probed_" + label] = {
             "err": err, "x": x.tolist(), "probe": probe.tolist(),
             "canaries": bool(ws[:, stride:].isnan().all()) and
@@ -408,7 +417,8 @@ def _main(lib_path):
     # the plan at the multistart's, the box recipe's and a large shape,
     # and a launch whose block does not fit the shared-memory limit
     plans = {}
-    for box, n in ((0, 100), (1, 10), (0, 4096), (2, 100), (2, 4096)):
+    for box, n in ((0, 100), (1, 10), (0, 4096), (2, 100), (2, 4096),
+                   (3, 10), (3, 4096)):
         vals = (ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
         err = lib.lbfgspp_native_plan(box, n, 6, 1,
                                       *(ctypes.byref(v) for v in vals))
@@ -519,11 +529,12 @@ def test_emulated_plan_and_refused_launch(emulated):
     plans = emulated["plans"]
     for key, want in plans.items():
         box, n = map(int, key.split(","))
-        assert want == _expected_plan(box == 1, n), key
+        assert want == _expected_plan(box in (1, 3), n), key
     assert plans["0,100"][1:3] == [1, 13] and plans["0,100"][3] > 0
     assert plans["1,10"][3] > 0 and plans["0,4096"][3] == 0
     assert plans["2,100"] == plans["0,100"]
     assert plans["2,4096"] == plans["0,4096"]
+    assert plans["3,10"] == plans["1,10"] and plans["3,4096"][3] == 0
     assert emulated["too_big"] != 0 and emulated["untouched"]
     assert emulated["too_big_probed"] != 0
 
@@ -547,3 +558,30 @@ def test_emulated_probed_kernel_equals_default(emulated, label):
     moved = np.asarray(want["niter"]) > 1
     assert moved.any() and (rec["search"][moved] > 0).all()
     assert (rec["direction"][moved] > 0).all()
+
+
+@pytest.mark.parametrize("label", [k for k, v in RUNS.items() if v[0]])
+def test_emulated_probed_box_kernel_equals_default(emulated, label):
+    """The probed box kernel gives the default box kernel's x and outputs
+    bit for bit, and one record per instance: start_ns <= end_ns, every
+    phase's cycles >= 0, eval, search and direction together within the
+    slot's, the Cauchy points and subspace steps together within the
+    directions'."""
+    got, want = emulated["runs"]["probed_" + label], emulated["runs"][label]
+    assert got["err"] == 0 and got["canaries"]
+    for k in ("x", "fx", "gnorm", "niter", "nfev", "status"):
+        assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
+    rec = dict(zip(native.PROBE_FIELDS_B, np.asarray(got["probe"]).T))
+    assert (rec["start_ns"] > 0).all()
+    assert (rec["start_ns"] <= rec["end_ns"]).all()
+    phases = np.stack([rec[k] for k in native.PROBE_FIELDS_B[3:]])
+    assert (phases >= 0).all() and (rec["eval"] > 0).all()
+    assert (rec["eval"] + rec["search"] + rec["direction"] <=
+            rec["total"]).all()
+    assert (rec["cauchy"] + rec["subspace"] <= rec["direction"]).all()
+    # an instance that took a second search turned in between: a Cauchy
+    # point and a subspace step
+    turned = np.asarray(want["niter"]) > 1
+    assert turned.any()
+    for k in ("search", "direction", "cauchy", "subspace"):
+        assert (rec[k][turned] > 0).all(), k

@@ -1,10 +1,11 @@
-"""The probe of the native L-BFGS kernel, on the CPU.
+"""The probes of the native kernels, on the CPU.
 
 The switch (a recording ``torch.profiler``, and ``native.probing``), the
 reduction of a launch's records, ``probe_records`` and ``reset_counts``,
 the card path's span ``lbfgspp.native.launch`` and its summary with the
-C launch stubbed, and the arithmetic of the six portbench readers on
-hand-made summaries.  The probed kernel itself runs in
+C launch stubbed (the L-BFGS and the box kernel's, and
+``minimize_b_batch``'s way to it), and the arithmetic of the portbench
+readers on hand-made summaries.  The probed kernel itself runs in
 ``test_torch_native_emulated.py`` (emulated, bit for bit against the
 default kernel) and ``test_torch_cuda.py`` (on the card).
 """
@@ -15,7 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from lbfgspp_tpu_torch import LBFGSParams, native
+from lbfgspp_tpu_torch import LBFGSBParams, LBFGSParams, native
 from portbench import run as portbench
 
 # two launches' summaries, as probe_records gives them
@@ -128,6 +129,7 @@ def test_card_path_probes_while_a_profiler_records(stubbed_card):
     (rec,) = native.probe_records()
     host_ns = rec.pop("host_ns")
     assert 0 < host_ns < 10**10
+    assert rec.pop("kernel") == "lbfgs"
     assert rec == dict(batch=3, slots=132 * 12, span_ns=900, busy_ns=2000,
                        total=12000, eval=2400, search=4700, direction=3400)
     assert native.native_lbfgs_batch.launches == 2
@@ -145,3 +147,132 @@ def test_probe_buffer_is_reused_while_the_batch_size_holds(stubbed_card):
     assert stubbed_card[0] is stubbed_card[1]
     assert stubbed_card[2].shape == (4, 6)
     assert [r["batch"] for r in native.probe_records()] == [3, 3, 4]
+
+
+# the box kernel's: two launches' summaries, and each new reader's value on
+# them, worked by hand (the L-BFGS launch between them is not read)
+RECORDS_B = [
+    dict(RECORDS[0], kernel="lbfgsb", cauchy=40 * 10**9,
+         subspace=60 * 10**9),
+    dict(RECORDS[1], kernel="lbfgs"),
+    dict(RECORDS[1], kernel="lbfgsb", cauchy=50 * 10**9,
+         subspace=70 * 10**9),
+]
+READINGS_B = {
+    "native_box_cauchy_share": 100 * 90 / 1122,
+    "native_box_subspace_share": 100 * 130 / 1122,
+}
+
+
+@pytest.mark.parametrize("name", list(READINGS_B))
+def test_box_reader_arithmetic(monkeypatch, name):
+    """Each box reader on hand-made summaries, the L-BFGS launch left out;
+    None with no records, with L-BFGS records only, and from a program
+    without the probe."""
+    read = portbench.reader(name).read
+    monkeypatch.setattr(native, "probe_records", lambda: RECORDS_B)
+    assert read({}) == pytest.approx(READINGS_B[name], rel=1e-12)
+    monkeypatch.setattr(native, "probe_records",
+                        lambda: [dict(r, kernel="lbfgs") for r in RECORDS])
+    assert read({}) is None
+    monkeypatch.setattr(native, "probe_records", list)
+    assert read({}) is None
+    monkeypatch.delattr(native, "probe_records")
+    assert read({}) is None
+
+
+def test_unconstrained_summary_keys_are_unchanged():
+    """The L-BFGS record and summary fields, as the accepted readers read
+    them; a summary adds only ``kernel``, a box summary ``cauchy`` and
+    ``subspace`` besides."""
+    assert native.PROBE_FIELDS == ("start_ns", "end_ns", "total", "eval",
+                                   "search", "direction")
+    assert native.SUMMARY_FIELDS == ("batch", "slots", "span_ns", "busy_ns",
+                                     "total", "eval", "search", "direction",
+                                     "host_ns")
+    assert native.PROBE_FIELDS_B == native.PROBE_FIELDS + ("cauchy",
+                                                           "subspace")
+    assert set(native.SUMMARY_FIELDS_B) == set(native.SUMMARY_FIELDS) | {
+        "cauchy", "subspace"}
+
+
+@pytest.fixture
+def stubbed_box_card(monkeypatch):
+    """The card path with both kernels' C launches replaced; a probed
+    launch fills its records (six fields, or eight for the box kernel)
+    with known values.  Returns the launches' ``(box, probe, lb, ub)``."""
+    seen = []
+    fake = torch.tensor([[100, 900, 5000, 1000, 2000, 1500, 300, 400],
+                         [300, 1000, 4000, 900, 1800, 1100, 200, 500]])
+
+    def launch(lib, box, bid, xs, params, ls, out, lb=None, ub=None,
+               probe=None):
+        seen.append((box, probe, lb, ub))
+        if probe is not None:
+            probe.copy_(fake[torch.arange(len(probe)) % 2, :probe.shape[1]])
+        return native.Plan(2, 14, 15000)
+
+    monkeypatch.setattr(native, "_device_lib", lambda contract: None)
+    monkeypatch.setattr(native, "_launch", launch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    native.reset_counts()
+    yield seen
+    native.reset_counts()
+
+
+def test_box_card_path_probes_while_a_profiler_records(stubbed_box_card):
+    """The box kernel's card path: the bounds made inside the span, the
+    launch counted as the box kernel's; profiled, the probed build with
+    [B, 8] records and, after an L-BFGS launch's, a summary of kernel
+    "lbfgsb" with the Cauchy points' and subspace steps' cycles."""
+    xs = torch.zeros(4, 10, dtype=torch.float64)
+    lo = torch.full((10,), 2.0, dtype=torch.float64)
+
+    def bounds(rows):
+        return (lo.expand(rows.shape).contiguous(),
+                (lo + 2).expand(rows.shape).contiguous())
+
+    native._card_batch(lambda: xs, "rosenbrock", LBFGSBParams(), None, None,
+                       True, bounds)
+    box, probe, lb, ub = stubbed_box_card[0]
+    assert box and probe is None and lb.shape == ub.shape == (4, 10)
+    assert native.native_lbfgsb_batch.launches == 1
+    assert native.native_lbfgs_batch.launches == 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        native._card_batch(lambda: xs, "rosenbrock", LBFGSParams(),
+                           "nocedalwright", None, True)
+        native._card_batch(lambda: xs, "rosenbrock", LBFGSBParams(), None,
+                           None, True, bounds)
+    assert [s[1].shape for s in stubbed_box_card[1:]] == [(4, 6), (4, 8)]
+    assert [e.name for e in prof.events()].count(native.LAUNCH_SPAN) == 2
+    first, rec = native.probe_records()
+    assert first["kernel"] == "lbfgs" and "cauchy" not in first
+    assert 0 < rec.pop("host_ns") < 10**10
+    assert rec == dict(batch=4, slots=132 * 14 * 2, span_ns=900,
+                       busy_ns=3000, total=18000, eval=3800, search=7600,
+                       direction=5200, cauchy=1000, subspace=1800,
+                       kernel="lbfgsb")
+    assert native.native_lbfgsb_batch.launches == 2
+
+
+def test_minimize_b_batch_takes_the_card_path(monkeypatch):
+    """On a CUDA device the public call goes through the box kernel's card
+    path, with its rows and the bounds broadcast to them made there."""
+    calls = []
+
+    def card(rows, fun, params, line_search, threads, contract, bounds):
+        calls.append((fun, params, threads, contract, bounds))
+        xs = torch.zeros(3, 10, dtype=torch.float64)
+        return xs, native._outputs(3, "cpu")
+
+    monkeypatch.setattr(native, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(native, "_card_batch", card)
+    p = LBFGSBParams(m=6)
+    res = native.minimize_b_batch("rosenbrock", torch.zeros(3, 10), 2.0, 4.0,
+                                  p)
+    ((fun, params, threads, contract, bounds),) = calls
+    assert (fun, params, threads, contract) == ("rosenbrock", p, None, True)
+    assert callable(bounds) and res.x.shape == (3, 10)
